@@ -1,12 +1,14 @@
 """Command-line interface of the PyTorch port.
 
   python -m flatmatch_tpu_torch.cli render <layout.png> [scale] [options]
+  python -m flatmatch_tpu_torch.cli fit <layout.png> <target_dir> [scale] [options]
 
 Same positional arguments, flags and defaults as `flatmatch_tpu.cli render`
-(its production defaults: --device-rng on, --splat inkernel_i8), plus
-`--device` (default cuda). Flags and values outside the ported slice exit
-with an error that names ROADMAP.md rather than being ignored. The other
-commands of the JAX package (package, serve, fit, debug) are not ported yet.
+and `fit` (their production defaults: --device-rng on, --splat
+inkernel_i8), plus `--device` (default cuda). Flags and values outside the
+ported slices exit with an error that names ROADMAP.md rather than being
+ignored. The other commands of the JAX package (package, serve, debug) are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -137,7 +139,7 @@ def _outside_slice(args) -> list:
         out.append(f"--splat {args.splat}")
     if args.checkpoint is not None:
         out.append("--checkpoint")
-    if args.preview:
+    if getattr(args, "preview", False):
         out.append("--preview")
     if args.profile is not None:
         out.append("--profile")
@@ -180,6 +182,40 @@ def main(argv=None) -> int:
         "sub-texels down before tone mapping",
     )
 
+    p_fit = sub.add_parser(
+        "fit",
+        help="inverse rendering: fit per-wall albedo + per-emitter power "
+        "so the photon render matches a target (render --dump-raw output)",
+    )
+    p_fit.add_argument("layout", help="layout PNG path")
+    p_fit.add_argument(
+        "target", help="directory containing tile_<i>.raw dumps "
+        "(the tiles/ dir of a `render --dump-raw` run)"
+    )
+    p_fit.add_argument(
+        "scale", nargs="?", type=float, default=30.0, help="pixels per meter"
+    )
+    _add_engine_flags(p_fit)
+    p_fit.add_argument("--fit-steps", type=int, default=100)
+    p_fit.add_argument("--fit-lr", type=float, default=0.1)
+    p_fit.add_argument(
+        "--fit-power-only", action="store_true",
+        help="hold albedo at its init; fit emitter powers only",
+    )
+    p_fit.add_argument(
+        "--fit-init-albedo", type=float, default=None,
+        help="starting albedo (default: the physics constant 0.9)",
+    )
+    p_fit.add_argument(
+        "--fit-render", default=None, metavar="DIR",
+        help="also export tone-mapped tiles rendered at the fitted "
+        "parameters into DIR",
+    )
+    p_fit.add_argument(
+        "--fit-init-power", type=float, default=1.0,
+        help="starting emitter power multiplier",
+    )
+
     args = parser.parse_args(argv)
     missing = _outside_slice(args)
     if missing:
@@ -187,24 +223,47 @@ def main(argv=None) -> int:
             f"not ported to flatmatch_tpu_torch yet: {', '.join(missing)} "
             f"(see ROADMAP.md)"
         )
-    ss = args.supersample
-    if ss < 1 or (ss & (ss - 1)):
-        parser.error(
-            f"--supersample must be a power of two >= 1, got {ss} "
-            "(the scaled tile grids must keep the power-of-two mipmap "
-            "invariant, rectangle.c:176-186)"
-        )
+    if args.cmd == "render":
+        ss = args.supersample
+        if ss < 1 or (ss & (ss - 1)):
+            parser.error(
+                f"--supersample must be a power of two >= 1, got {ss} "
+                "(the scaled tile grids must keep the power-of-two mipmap "
+                "invariant, rectangle.c:176-186)"
+            )
     import torch
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         parser.error("no CUDA device visible; --device cpu runs the plain "
                      "PyTorch version")
 
+    if args.cmd == "fit":
+        import pathlib
+
+        from .diff.fit import fit_layout
+        from .utils.progress import info
+
+        out = pathlib.Path(args.out)
+        out.mkdir(parents=True, exist_ok=True)
+        report = out / "fitted.json"
+        res = fit_layout(
+            args.layout, args.target, args.scale, _build_cfg(args),
+            steps=args.fit_steps, learning_rate=args.fit_lr,
+            fit_albedo=not args.fit_power_only,
+            init_albedo=args.fit_init_albedo,
+            init_power=args.fit_init_power, out_path=str(report),
+            render_out=args.fit_render, device=args.device,
+        )
+        if len(res.losses):
+            info(f"fit: loss {res.losses[0]:.3e} -> {res.losses[-1]:.3e} "
+                 f"over {args.fit_steps} steps; report {report}")
+        return 0
+
     from .render import render
 
     render(args.layout, args.out, args.scale, _build_cfg(args),
            device=args.device, dump_raw=args.dump_raw,
-           dilate_seams=args.dilate_seams, supersample=ss)
+           dilate_seams=args.dilate_seams, supersample=args.supersample)
     return 0
 
 

@@ -1,9 +1,10 @@
 """Scene tables carried across from the JAX package.
 
 The renderer has no weights: the state both packages share is the packed
-scene and the config. These take the JAX package's `AARectsDev` and
-`EmittersDev` fields as numpy arrays (`np.asarray` of each field) and build
-the port's tensors, so both engines can be fed identical tables.
+scene, the config and, for the fit, its parameters. These take the JAX
+package's `AARectsDev` and `EmittersDev` fields and fit parameters as numpy
+arrays (`np.asarray` of each field) and build the port's tensors, so both
+packages can be fed identical state.
 """
 from __future__ import annotations
 
@@ -34,3 +35,13 @@ def from_jax_emitters(pos, wvec, hvec, n, color, is_window, area, counts,
     """`EmittersDev` fields, in its field order -> `Emitters`."""
     return emitters_from_numpy(pos, wvec, hvec, n, color, is_window, area,
                                counts, device)
+
+
+def fit_params_from_jax(a_logit, p_log, device="cpu") -> dict:
+    """The JAX fit's parameter dict ({"a_logit", "p_log"} as numpy arrays)
+    -> the `params` of diff.fit.fit_materials, so both fits can start from
+    identical state."""
+    return {
+        "a_logit": torch.from_numpy(np.array(a_logit, np.float32)).to(device),
+        "p_log": torch.from_numpy(np.array(p_log, np.float32)).to(device),
+    }

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every `flatmatch_tpu_torch/csrc/*.cu` file is compiled by `nvcc` into one
-shared library with a plain C interface, loaded through ctypes. The library
-goes to `flatmatch_tpu_torch/_build/` under a name keyed by a hash of the
-sources and the flags, so an edit of either rebuilds it on first use and a
+Every `flatmatch_tpu_torch/csrc/*.cu` file is compiled by its own `nvcc`
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, loaded through ctypes. The library goes to
+`flatmatch_tpu_torch/_build/` under a name keyed by a hash of the sources,
+the headers and the flags, so an edit of any rebuilds it on first use and a
 fresh checkout builds it without a separate step. Nothing here runs when a
 module is imported.
 """
@@ -21,12 +22,22 @@ PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 
-NVCC_FLAGS = (
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-fmad=false", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+
+# C entry points: (pointer arguments, int arguments, float arguments); each
+# ends with the stream pointer and returns the CUDA error code
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+ENTRY_POINTS = {
+    "fm_trace_splat_wide_rng_i8": [_P] * 3 + [_I] * 8 + [_F] * 10 + [_P],
+    "fm_trace_splat_wide_diff_rng_i8": [_P] * 5 + [_I] * 8 + [_F] * 9 + [_P],
+    "fm_trace_fold_wide_rng": [_P] * 6 + [_I] * 8 + [_F] * 9 + [_P],
+}
 
 _lib = None
 build_info = {}   # "seconds", "log" (ptxas register and spill report), "path"
@@ -56,11 +67,53 @@ def _sources():
 
 
 def library_path() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD / f"libflatmatch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Run the commands at once; (output of each, first failure or None)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], None
+    for c, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        logs.append(out)
+        if p.returncode != 0 and failed is None:
+            failed = (c, p.returncode, out)
+    return logs, failed
+
+
+def _build(out: pathlib.Path) -> str:
+    nvcc = _nvcc()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, cmds = [], []
+    for src in _sources():
+        obj = BUILD / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        cmds.append([nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)])
+    logs, failed = _run_all(cmds)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    if failed is None:
+        link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed = (link, res.returncode, res.stdout + res.stderr)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed is not None:
+        cmd, rc, log = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
+    os.replace(tmp, out)
+    log = "".join(logs)
+    out.with_suffix(".log").write_text(log)
+    return log
 
 
 def load_library() -> ctypes.CDLL:
@@ -70,30 +123,20 @@ def load_library() -> ctypes.CDLL:
         return _lib
     out = library_path()
     t0 = time.perf_counter()
-    log = ""
     if not out.exists():
         from .progress import info
 
         info(f"building the CUDA kernels into {out.name} (first use)")
-        BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, _sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{log}"
-            )
-        os.replace(tmp, out)
-        out.with_suffix(".log").write_text(log)
+        log = _build(out)
     elif out.with_suffix(".log").exists():
         log = out.with_suffix(".log").read_text()
+    else:
+        log = ""
     lib = ctypes.CDLL(str(out))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.fm_trace_splat_wide_rng_i8
-    fn.argtypes = [ptr, ptr, ptr] + [i32] * 8 + [f32] * 10 + [ptr]
-    fn.restype = i32
+    for name, argtypes in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     build_info.update(seconds=time.perf_counter() - t0, log=log,
                       path=str(out))
     _lib = lib

@@ -1,4 +1,4 @@
-"""CUDA kernel of flatmatch_tpu_torch against its plain PyTorch version.
+"""CUDA kernels of flatmatch_tpu_torch against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU (marker `cuda`) and skip without one. They
 import neither jax nor the JAX package, so they run on a machine that has
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from flatmatch_tpu_torch.config import DEFAULT_CONFIG
+from flatmatch_tpu_torch.diff import render as prender
 from flatmatch_tpu_torch.engines import photon_wide as pw
 from flatmatch_tpu_torch.ops import rng
 from flatmatch_tpu_torch.ops.aa_scene import pack_aa
@@ -61,7 +62,7 @@ def test_kernel_matches_plain(dev, name, n_valid, batch):
                                      total_c)
     torch.cuda.synchronize()
     assert pw.trace_splat_wide_rng_i8.launches == before + 1
-    idx, col = pw.trace_deposits_rng_plain(
+    idx, col, _ = pw.trace_deposits_rng_plain(
         aa_c.fields, aa_c.group_counts, ev, seed, n_valid, batch, CFG.photon)
     inv_s = float(np.float32(1.0 / pw.splat_color_scale(CFG.photon)))
     want = pw.splat_i8_plain(idx, col, total_c, inv_s)
@@ -94,3 +95,121 @@ def test_wrapper_refuses_mixed_devices(dev):
     with pytest.raises(ValueError):
         pw.trace_splat_wide_rng_i8(aa_c.fields, aa_c.group_counts, ev, 0, 16,
                                    16, CFG.photon, total_c, out=out)
+
+
+def _diff_inputs(name, dev, power=1.7):
+    """Batch inputs of the diff kernels: albedo per slot from a numpy seed
+    (or the default 0.9 when power is 1), the emitter color times power."""
+    aa_c, total_c, ev = _inputs(name, dev)
+    n = aa_c.fields.shape[1]
+    if power == 1.0:
+        alb = torch.full((n,), np.float32(CFG.photon.albedo), device=dev)
+    else:
+        alb = torch.from_numpy(np.random.RandomState(3).uniform(
+            0.4, 0.95, n).astype(np.float32)).to(dev)
+    ev = ev.clone()
+    ev[12:15] = ev[12:15] * power
+    _, inv = prender.scale_pair(CFG.photon, torch.tensor(power, device=dev),
+                                alb)
+    return aa_c, total_c, alb, ev, inv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n_valid,batch", [
+    ("tiny", 1000, 1024),
+    ("mini", 131072, 131072),
+])
+def test_diff_kernel_matches_plain(dev, name, n_valid, batch):
+    """Per-slot albedo and the run-time grid: >= 99.9% of cells equal."""
+    aa_c, total_c, alb, ev, inv = _diff_inputs(name, dev)
+    seed = rng.batch_seed(CFG.photon.seed, 2)
+    before = pw.trace_splat_wide_diff_rng_i8.launches
+    got = pw.trace_splat_wide_diff_rng_i8(
+        aa_c.fields, aa_c.group_counts, alb, ev, seed, n_valid, batch,
+        CFG.photon, total_c, inv)
+    torch.cuda.synchronize()
+    assert pw.trace_splat_wide_diff_rng_i8.launches == before + 1
+    idx, col, _ = pw.trace_deposits_rng_plain(
+        aa_c.fields, aa_c.group_counts, ev, seed, n_valid, batch, CFG.photon,
+        alb)
+    want = pw.splat_i8_plain(idx, col, total_c, inv.item())
+    assert want.sum().item() > 0
+    assert (got == want).float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+def test_diff_kernel_at_defaults_equals_production(dev):
+    aa_c, total_c, alb, ev, inv = _diff_inputs("mini", dev, power=1.0)
+    seed = rng.batch_seed(CFG.photon.seed, 4)
+    prod = pw.trace_splat_wide_rng_i8(aa_c.fields, aa_c.group_counts, ev,
+                                      seed, 131072, 131072, CFG.photon,
+                                      total_c)
+    diff = pw.trace_splat_wide_diff_rng_i8(
+        aa_c.fields, aa_c.group_counts, alb, ev, seed, 131072, 131072,
+        CFG.photon, total_c, inv)
+    torch.cuda.synchronize()
+    assert prod.sum().item() > 0
+    assert torch.equal(prod, diff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n_valid,batch", [
+    ("tiny", 1000, 1024),
+    ("mini", 131072, 131072),
+    ("mini", 4097, 8192),
+])
+def test_fold_kernel_matches_plain_and_is_deterministic(dev, name, n_valid,
+                                                        batch):
+    """The fold sums in another order than index_add_: da at rtol 1e-4
+    against the plain fold, and two kernel runs bit-identical."""
+    aa_c, total_c, alb, ev, _ = _diff_inputs(name, dev)
+    g = torch.from_numpy(np.random.RandomState(5).rand(total_c, 3)
+                         .astype(np.float32)).to(dev)
+    seed = rng.batch_seed(CFG.photon.seed, 6)
+    n = aa_c.fields.shape[1]
+    before = pw.trace_fold_wide_rng.launches
+    runs = [pw.trace_fold_wide_rng(aa_c.fields, aa_c.group_counts, alb, ev,
+                                   g, seed, n_valid, batch, CFG.photon, n)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert pw.trace_fold_wide_rng.launches == before + 2
+    (da, w_sum), (da2, w_sum2) = runs
+    assert torch.equal(da, da2) and torch.equal(w_sum, w_sum2)
+    idx, col, ridx = pw.trace_deposits_rng_plain(
+        aa_c.fields, aa_c.group_counts, ev, seed, n_valid, batch, CFG.photon,
+        alb)
+    want, want_w = pw.fold_plain(idx, col, ridx, g, n)
+    assert want.abs().sum().item() > 0
+    np.testing.assert_allclose(da.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4,
+                               atol=1e-6 * want.abs().max().item())
+    np.testing.assert_allclose(w_sum.item(), want_w.item(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_diff_renderer_power_identity_and_determinism(dev):
+    """On the card: sum_e p_e dL/dp_e == L (every deposit is linear in
+    power; slack: the fold's bf16 rounding of g), and two backward passes
+    give the same bits."""
+    scene, _ = compile_scene(str(FIXTURES / "tiny.png"), 30.0, CFG)
+    ph = CFG.photon
+    em = pack_emitters(scene, ph.samples_per_area, ph.window_color,
+                       ph.light_color, device=dev)
+    r = prender.make_diff_renderer_wide(em, scene.num_texels, ph,
+                                        pack_aa(scene.walls, dev))
+    w = torch.from_numpy(np.random.RandomState(1).rand(scene.num_texels, 3)
+                         .astype(np.float32)).to(dev)
+    n = len(scene.walls)
+    grads = []
+    for _ in range(2):
+        a = torch.full((n,), 0.8, device=dev, requires_grad=True)
+        p = torch.full((len(em.counts),), 1.3, device=dev,
+                       requires_grad=True)
+        loss = torch.sum(r(a, p) * w)
+        loss.backward()
+        grads.append((a.grad, p.grad, loss.detach()))
+    (ga, gp, loss), (ga2, gp2, _) = grads
+    assert torch.equal(ga, ga2) and torch.equal(gp, gp2)
+    assert torch.isfinite(ga).all() and ga.abs().sum().item() > 0
+    np.testing.assert_allclose((gp * 1.3).sum().item(), loss.item(),
+                               rtol=2e-3)

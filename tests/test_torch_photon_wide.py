@@ -94,7 +94,7 @@ def test_deposit_stream_matches_jax(tables, depth):
     # one 1024-photon block: JAX rows are bounce-major
     idx = np.asarray(idx).reshape(depth, B).T
     col = np.asarray(col).reshape(depth, B, 3).transpose(1, 0, 2)
-    pidx, pcol = pw.trace_deposits_rng_plain(
+    pidx, pcol, _ = pw.trace_deposits_rng_plain(
         t["port_aa"].fields, t["port_aa"].group_counts, t["port_ev"],
         t["seed"], N_VALID, B, cfg,
     )
