@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from flatmatch_tpu_torch/csrc and drives the port's
-two paths on the card:
+four paths on the card:
 - the render: the production kernel against its plain PyTorch version,
   `tests/fixtures/mini.png` through the port's CLI at its defaults, the
   physics against the reference C engine's golden lightmap, and a 4x4
@@ -13,7 +13,13 @@ two paths on the card:
   plain versions (and the forward against the production kernel at the
   default parameters), the power identity of the gradient, `render
   --dump-raw` then `fit` on mini through the CLI at its defaults, and one
-  forward plus backward of the 4x4 tiling (phases 7-11).
+  forward plus backward of the 4x4 tiling (phases 7-11);
+- ambient occlusion and radiosity: the three nearest-hit kernels against
+  their plain versions, AO of mini (fused and chunked) against the
+  reference build's dump and tiles, both through the CLI, radiosity of
+  mini at 2000 and 10000 rays against the reference engine's dumps and
+  through the CLI at its defaults, and both engines on the 4x4 tiling at
+  their defaults (phases 12-17).
 Any failure exits non-zero. The line before the card's name lists every
 kernel with its launches on its path, its error against its plain version,
 its time, the plain version's time and its bound. The last line of standard
@@ -31,16 +37,33 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures"
 TPU_WIDE = "flatmatch_tpu/engines/photon_pallas_wide.py"
+TPU_AO = "flatmatch_tpu/engines/ao_pallas.py"
+# kernel name -> (port module holding its wrapper, CUDA source, TPU kernel)
+KERNEL_SITES = {
+    "trace_splat_wide_rng_i8": ("engines.photon_wide", "trace_splat_wide_rng",
+                                f"{TPU_WIDE}:1002"),
+    "trace_splat_wide_diff_rng_i8": ("engines.photon_wide",
+                                     "trace_splat_wide_diff_rng",
+                                     f"{TPU_WIDE}:1252"),
+    "trace_fold_wide_rng": ("engines.photon_wide", "trace_fold_wide_rng",
+                            f"{TPU_WIDE}:1394"),
+    "ao_fused": ("engines.ao", "ao_fused", f"{TPU_AO}:412"),
+    "nearest_distances": ("ops.aa_query", "aa_nearest", f"{TPU_AO}:111"),
+    "aa_nearest": ("ops.aa_query", "aa_nearest",
+                   "flatmatch_tpu/ops/aa_query.py:127"),
+}
 KERNELS = {
     name: dict(name=name, route="cuda",
-               source=f"flatmatch_tpu_torch/csrc/{src}.cu",
-               replaces=f"{TPU_WIDE}:{line}")
-    for name, src, line in (
-        ("trace_splat_wide_rng_i8", "trace_splat_wide_rng", 1002),
-        ("trace_splat_wide_diff_rng_i8", "trace_splat_wide_diff_rng", 1252),
-        ("trace_fold_wide_rng", "trace_fold_wide_rng", 1394),
-    )
+               source=f"flatmatch_tpu_torch/csrc/{src}.cu", replaces=tpu)
+    for name, (_, src, tpu) in KERNEL_SITES.items()
 }
+# The axis-aligned AO of mini against the reference build's dump: the
+# bands of tests/test_ao_parity.py, except the mean, which there holds the
+# JAX package's general XLA intersector (4.8e-5). Its axis-aligned kernels,
+# which the port runs, measure 1.222e-4 (ao_pallas.render_ao in interpret
+# mode on the CPU) and the port 1.198e-4: a few rays that graze a coplanar
+# wall's edge land on its other side (tests/test_torch_ao.py).
+MINI_AA_MEAN = 1.25e-4
 # Roofline of the trace kernels (H100 SXM datasheet rates:
 # 3.35 TB/s HBM, 67 TFLOP/s float32 outside the tensor cores). Operations
 # are counted from the kernel source per unit of this run's work: a rect
@@ -124,17 +147,33 @@ def trace_bound(s, bounces, photons, kernel):
     return bound(nbytes, ops)
 
 
-def reset_launches():
-    from flatmatch_tpu_torch.engines import photon_wide as pw
+def wrapper(name):
+    """The port's wrapper function of kernel `name` (it holds the count)."""
+    import importlib
 
+    mod = importlib.import_module(
+        f"flatmatch_tpu_torch.{KERNEL_SITES[name][0]}")
+    return getattr(mod, name)
+
+
+def reset_launches():
     for name in KERNELS:
-        getattr(pw, name).launches = 0
+        wrapper(name).launches = 0
 
 
 def read_launches():
-    from flatmatch_tpu_torch.engines import photon_wide as pw
+    return {name: wrapper(name).launches for name in KERNELS}
 
-    return {name: getattr(pw, name).launches for name in KERNELS}
+
+def ray_bound(n_rects, rays, bytes_per_ray, extra_bytes=0):
+    """Bound of a nearest-hit launch over `rays` rays: every ray tests all
+    n_rects rects (OPS_PER_RECT_TEST each, about 10 more per ray for the
+    reciprocals and the result). Bytes: the scene table, `bytes_per_ray`
+    (origin and direction read, results written; 0 when the kernel makes
+    its rays) and `extra_bytes` (a kernel's other inputs and outputs)."""
+    ops = rays * (n_rects * OPS_PER_RECT_TEST + 10)
+    nbytes = 4 * 13 * n_rects + rays * bytes_per_ray + extra_bytes
+    return bound(nbytes, ops)
 
 
 def batch_setup(png, cfg, dev):
@@ -243,6 +282,433 @@ def kernel_batch(s, cfg, B, out=None):
     return pw.trace_splat_wide_rng_i8(
         s["aa_c"].fields, s["aa_c"].group_counts, s["ev"], s["seed"], B, B,
         cfg.photon, s["total_c"], out=out)
+
+
+# --------------------------------------------------------------------------
+# ambient occlusion and radiosity (phases 12-17)
+# --------------------------------------------------------------------------
+def sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def nearest_inputs(scene, dev, cfg):
+    """Inputs of the three nearest-hit kernels as the engines make them at
+    cfg: the first form-factor chunk of wall 0 (aa_nearest), the first chunk
+    of the chunked AO's rays (nearest_distances) and the fused AO's tables
+    (ao_fused)."""
+    import numpy as np
+    import torch
+
+    from flatmatch_tpu_torch.engines import ao, radiosity
+    from flatmatch_tpu_torch.ops import threefry
+    from flatmatch_tpu_torch.ops.aa_scene import pack_aa
+
+    rad, aoc = cfg.radiosity, cfg.ao
+    _, aa_ext, _ = radiosity.prepare(scene, rad, dev)
+    wall = scene.walls[0]
+    c = torch.from_numpy(ao.tile_centers(wall)[:rad.texels_per_chunk]).to(dev)
+    n = torch.from_numpy(np.asarray(wall.n, np.float32)).to(dev)
+    key = threefry.fold_in(threefry.fold_in(threefry.prng_key(rad.seed), 0),
+                           0)
+    src, direc = radiosity.ff_rays(c, n, key, rad.rays_per_texel)
+    aa = pack_aa(scene.walls, dev)
+    k_pad = len(ao.direction_weights(aoc.geosphere_level, 8))
+    centers, walls, _ = ao._texel_tables(scene)
+    chunk = (1 << 21) // k_pad        # render_ao's texels per launch
+    d = torch.from_numpy(ao._padded_dirs(scene, aoc.geosphere_level, k_pad)
+                         ).to(dev)[torch.from_numpy(walls[:chunk]).long()
+                                   .to(dev)]
+    cc = torch.from_numpy(centers[:chunk]).to(dev)
+    origins = (cc[:, None, :] + d * ao.NUDGE).reshape(-1, 3)
+    fused = [torch.from_numpy(a).to(dev)
+             for a in ao._ao_fused_prep(scene, aoc)[:4]]
+    return dict(aa_ext=aa_ext, src=src, direc=direc, aa=aa, origins=origins,
+                dirs=d.reshape(-1, 3).contiguous(), fused=fused)
+
+
+def kernels_vs_plain(inp, reps, plain_reps, fused_texels=None):
+    """Each nearest-hit kernel against its plain version on `inp`, with its
+    time, the plain time and the bound. The fused AO is compared (and its
+    plain version timed) on the first `fused_texels` texels when given; its
+    kernel is also timed on the whole pass."""
+    from flatmatch_tpu_torch.engines import ao
+    from flatmatch_tpu_torch.ops import aa_query
+
+    out = {}
+    ext = inp["aa_ext"]
+    args = (ext.fields, ext.group_counts, inp["src"], inp["direc"])
+    dist, tex = aa_query.aa_nearest(*args)
+    pdist, ptex = aa_query.aa_nearest_plain(*args)
+    sync()
+    ids_eq = (tex == ptex).float().mean().item()
+    dist_eq = (dist == pdist).float().mean().item()
+    same = (tex == ptex) & (tex >= 0)
+    err = (dist - pdist)[same].abs().max().item()
+    check(ids_eq >= 0.999 and dist_eq >= 0.999,
+          f"aa_nearest: ids equal {ids_eq}, distances equal {dist_eq}")
+    R = inp["src"].shape[0]
+    n_ext = ext.fields.shape[1]
+    out["aa_nearest"] = dict(
+        rays=R, rects=n_ext, ids_equal=ids_eq, dist_equal=dist_eq,
+        hit_share=(ptex >= 0).float().mean().item(), max_abs_err=err,
+        ms=cuda_ms(lambda: aa_query.aa_nearest(*args), reps),
+        plain_ms=cuda_ms(lambda: aa_query.aa_nearest_plain(*args),
+                         plain_reps),
+        **dict(zip(("bound_ms", "bound_by"), ray_bound(n_ext, R, 24 + 8))))
+
+    aa = inp["aa"]
+    args = (aa.fields, aa.group_counts, inp["origins"], inp["dirs"], 10.0)
+    got = aa_query.nearest_distances(*args)
+    want = aa_query.nearest_distances_plain(*args)
+    sync()
+    eq = (got == want).float().mean().item()
+    check(eq >= 0.999, f"nearest_distances: only {eq} equal")
+    R = inp["origins"].shape[0]
+    n = aa.fields.shape[1]
+    out["nearest_distances"] = dict(
+        rays=R, rects=n, equal_share=eq,
+        max_abs_err=(got - want).abs().max().item(),
+        ms=cuda_ms(lambda: aa_query.nearest_distances(*args), reps),
+        plain_ms=cuda_ms(lambda: aa_query.nearest_distances_plain(*args),
+                         plain_reps),
+        **dict(zip(("bound_ms", "bound_by"), ray_bound(n, R, 24 + 4))))
+
+    centers, walls, dirs, fac = inp["fused"]
+    T = min(centers.shape[0], fused_texels or centers.shape[0])
+    args = (aa.fields, aa.group_counts, centers[:T], walls[:T], dirs, fac,
+            10.0)
+    a, b = ao.ao_fused(*args), ao.ao_fused(*args)
+    want = ao.ao_fused_plain(*args)
+    sync()
+    check(bool((a == b).all()), "ao_fused: two runs differ")
+    check(bool(((a == 0) == (want == 0)).all()),
+          "ao_fused: zero pattern differs from the plain version")
+    nz = want != 0
+    rel = ((a[nz] - want[nz]).abs() / want[nz].abs()).max().item()
+    check(rel <= 1e-5, f"ao_fused: relative error {rel}")
+    K = int((fac > 0).sum().item())   # the real directions
+    whole = (aa.fields, aa.group_counts, centers, walls, dirs, fac, 10.0)
+    T_all = centers.shape[0]
+    extra = (12 + 4 + 4) * T_all + 4 * dirs.numel() + 4 * fac.numel()
+    out["ao_fused"] = dict(
+        texels=T_all, compared_texels=T, directions=K, rects=n,
+        max_rel_err=rel, equal_share=(a == want).float().mean().item(),
+        max_abs_err=(a - want).abs().max().item(),
+        ms=cuda_ms(lambda: ao.ao_fused(*whole), reps),
+        ms_compared=cuda_ms(lambda: ao.ao_fused(*args), reps),
+        plain_ms_compared=cuda_ms(lambda: ao.ao_fused_plain(*args),
+                                  plain_reps),
+        **dict(zip(("bound_ms", "bound_by"),
+                   ray_bound(n, T_all * K, 0, extra))))
+    if T == T_all:
+        out["ao_fused"]["plain_ms"] = out["ao_fused"]["plain_ms_compared"]
+    return out
+
+
+def ao_bands(scene, tex):
+    """The AO arena of mini against the reference build's dump."""
+    import numpy as np
+
+    gold = np.fromfile(FIXTURES / "mini_ao_texels.f32", dtype="<f4"
+                       ).reshape(scene.num_texels, 4)[:, :3]
+    l0 = scene.level0_mask()
+    rel = np.abs(tex[l0] - gold[l0]) / np.maximum(np.abs(gold[l0]), 1e-6)
+    within = float((rel < 5e-4).mean())
+    check(bool((rel < 2e-2).all()), f"AO max rel diff {rel.max()}")
+    check(within > 0.98, f"AO: only {within} of texels within 5e-4")
+    check(float(rel.mean()) < MINI_AA_MEAN, f"AO mean rel {rel.mean()}")
+    check(bool((tex[~l0] == 0).all()), "AO wrote a mipmap slot")
+    return dict(max_rel=float(rel.max()), share_within_5e4=within,
+                mean_rel=float(rel.mean()))
+
+
+def ao_tiles_match(scene, tex):
+    """Tiles 0 and 5 of mini within 1 LSB of the reference PNGs."""
+    import numpy as np
+    from PIL import Image
+
+    from flatmatch_tpu_torch.io import tiles as tiles_io
+
+    worst = 0
+    for idx in (0, 5):
+        ours = tiles_io.tile_rgb(scene.walls[idx], tex, tint_extra=True)
+        gold = np.asarray(Image.open(FIXTURES / f"mini_ao_tile_{idx}.png")
+                          .convert("RGB"))
+        check(ours.shape == gold.shape, f"tile {idx} shape")
+        diff = np.abs(ours.astype(int) - gold.astype(int))
+        check(diff.max() <= 1 and (diff > 0).mean() < 0.02,
+              f"tile {idx}: max diff {diff.max()}")
+        worst = max(worst, int(diff.max()))
+    return worst
+
+
+def radiosity_bands(scene, out, rays):
+    """Radiosity of mini against the reference engine's dump at `rays`:
+    the bands of tests/test_radiosity_vs_reference.py (at 10000 rays its
+    production bands)."""
+    import numpy as np
+
+    from flatmatch_tpu_torch.scene.rectangle import num_tiles
+
+    gold = np.fromfile(FIXTURES / f"mini_radiosity_rays{rays}.f32",
+                       dtype="<f4").reshape(scene.num_texels, 4)[:, :3]
+    prod = rays == 10000
+    check(np.isfinite(out).all(), "radiosity not finite")
+    ratio = float(out.sum() / gold.sum())
+    check(abs(ratio - 1) <= (0.01 if prod else 0.02),
+          f"radiosity energy ratio {ratio} at {rays} rays")
+    worst, walls = 0.0, 0
+    for i, r in enumerate(scene.walls):
+        sl = slice(r.base, r.base + num_tiles(r))
+        o, g = out[sl].mean(), gold[sl].mean()
+        if g > 1e-3:
+            rtol = 0.08 if num_tiles(r) >= 64 else 0.2
+            if prod:
+                rtol = max(0.02, rtol / np.sqrt(5.0))
+            check(abs(o - g) <= rtol * abs(g),
+                  f"wall {i} radiosity {o} vs {g} (rtol {rtol}, {rays} rays)")
+            worst = max(worst, float(abs(o - g) / (rtol * abs(g))))
+            walls += 1
+    check(walls >= 5, f"only {walls} walls carried energy")
+    corr = float(np.corrcoef(out.ravel(), gold.ravel())[0, 1])
+    check(corr > (0.995 if prod else 0.99), f"radiosity correlation {corr}")
+    return dict(energy_ratio=ratio, walls_checked=walls,
+                worst_wall_share_of_band=worst, texel_corr=corr)
+
+
+def profiled(fn):
+    """Run fn() once under torch.profiler (CUDA activity): its wall
+    seconds, the device milliseconds of its kernels in groups (the port's
+    kernels by name, PyTorch's own kernels, copies and fills) and the
+    share of the wall the device was busy. The groups are None when the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    groups = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        name = e.key
+        if "nearest_kernel" in name:
+            group = "aa_nearest.cu"
+        elif "ao_fused_kernel" in name:
+            group = "ao_fused.cu"
+        elif "memcpy" in name.lower() or "memset" in name.lower():
+            group = "copies and fills"
+        else:
+            group = "torch kernels"
+        groups[group] = groups.get(group, 0.0) + us / 1e3
+    busy = sum(groups.values())
+    if busy <= 0:
+        return dict(wall_s=wall, device_ms=None, busy_share=None)
+    return dict(wall_s=wall, device_ms=groups,
+                busy_share=busy / (wall * 1e3))
+
+
+def cli_render(args, tmp, want_tiles):
+    """One `render` through the CLI with the counts reset just before:
+    (wall seconds, launches, output dir)."""
+    import torch
+
+    from flatmatch_tpu_torch import cli
+
+    out = pathlib.Path(tmp) / "out"
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    rc = cli.main(["render", *args, "--out", str(out)])
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(rc == 0, f"cli {args} returned {rc}")
+    tiles = len(list((out / "tiles").glob("tile_*.png")))
+    check(tiles == want_tiles, f"{tiles} tiles, want {want_tiles}")
+    return wall, launches, out
+
+
+def ao_radiosity_phases(dev, results, make_layout):
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from flatmatch_tpu_torch.config import DEFAULT_CONFIG, Engine
+    from flatmatch_tpu_torch.engines import ao, radiosity
+    from flatmatch_tpu_torch.ops.mipmap import build_plan
+    from flatmatch_tpu_torch.render import compile_scene, run_engine
+    from flatmatch_tpu_torch.scene.rectangle import num_tiles
+
+    mini = FIXTURES / "mini.png"
+    cfg = DEFAULT_CONFIG
+    cfg_ao = cfg.replace(engine=Engine.AMBIENT_OCCLUSION)
+    cfg_rad = cfg.replace(engine=Engine.RADIOSITY)
+    scene, _ = compile_scene(str(mini), 30.0, cfg)
+    T0 = sum(num_tiles(w) for w in scene.walls)
+
+    # 12. the three kernels against their plain versions on mini -----------
+    k12 = kernels_vs_plain(nearest_inputs(scene, dev, cfg), 10, 2)
+    for name, r in k12.items():
+        results[name] = dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                             bound_by=r["bound_by"], library_ms=None)
+    say("nearest_kernels_vs_plain", scene="mini", **k12)
+
+    # 13. AO physics: fused and chunked against the reference dump ---------
+    fused = run_engine(scene, cfg_ao, dev)
+    fused2 = run_engine(scene, cfg_ao, dev)
+    cfg_chunked = cfg_ao.replace(ao=dc.replace(cfg.ao, fused=False))
+    chunked = run_engine(scene, cfg_chunked, dev)
+    chunked2 = run_engine(scene, cfg_chunked, dev)
+    check(np.array_equal(fused, fused2) and np.array_equal(chunked, chunked2),
+          "two AO runs differ")
+    nz = chunked != 0
+    check(bool(((fused != 0) == nz).all()), "fused and chunked zeros differ")
+    fc = float((np.abs(fused[nz] - chunked[nz]) / chunked[nz]).max())
+    check(fc < 1e-5, f"fused vs chunked AO {fc}")
+    say("ao_physics", scene="mini", fused=ao_bands(scene, fused),
+        chunked=ao_bands(scene, chunked), tiles_max_lsb=ao_tiles_match(
+            scene, fused), fused_vs_chunked_max_rel=fc, bit_identical=True)
+
+    # 14. AO through the CLI: the fused default, then --ao-chunked ---------
+    chunk = (1 << 21) // len(ao.direction_weights(cfg.ao.geosphere_level, 8))
+    expect = {"ao_fused": 1, "nearest_distances": -(-T0 // chunk)}
+    cli14 = {}
+    for flags, name in (([], "ao_fused"), (["--ao-chunked"],
+                                           "nearest_distances")):
+        with tempfile.TemporaryDirectory() as tmp:
+            wall, launches, out = cli_render(
+                [str(mini), "30", "--engine", "ambient_occlusion", *flags],
+                tmp, 27)
+            for art in ("geometry", "collisionMap"):
+                check((out / f"{art}.json").read_bytes()
+                      == (FIXTURES / f"mini_{art}.json").read_bytes(),
+                      f"{art}.json differs from the fixture")
+        check(launches[name] == expect[name],
+              f"{name}: {launches[name]} launches, want {expect[name]}")
+        check(sum(launches.values()) == launches[name],
+              f"AO launched other kernels: {launches}")
+        results[name]["launches"] = launches[name]
+        cfg14 = cfg_ao.replace(ao=dc.replace(cfg.ao,
+                                             fused=name == "ao_fused"))
+        sync()
+        t0 = time.perf_counter()
+        run_engine(scene, cfg14, dev)
+        sync()
+        engine = time.perf_counter() - t0
+        cli14[name] = dict(wall_s=wall, launches=launches[name],
+                           run_engine_s=engine,
+                           kernel_share_of_run_engine=launches[name]
+                           * k12[name]["ms"] / 1e3 / engine)
+    say("cli_ao", scene="mini", tiles=27, **cli14)
+
+    # 15. radiosity physics against the reference engine's dumps -----------
+    rad5 = dc.replace(cfg.radiosity, seed=5)
+    r2k = [radiosity.render_radiosity(
+        scene, dc.replace(rad5, rays_per_texel=2000), dev) for _ in range(2)]
+    check(np.array_equal(r2k[0], r2k[1]), "two radiosity runs differ")
+    t0 = time.perf_counter()
+    r10k = radiosity.render_radiosity(scene, rad5, dev)
+    wall10k = time.perf_counter() - t0
+    say("radiosity_physics", scene="mini", seed=5,
+        rays2000=radiosity_bands(scene, r2k[0], 2000),
+        rays10000=radiosity_bands(scene, r10k, 10000),
+        rays10000_wall_s=wall10k, bit_identical=True)
+
+    # 16. radiosity through the CLI at its defaults -------------------------
+    n_chunks = sum(-(-num_tiles(w) // cfg.radiosity.texels_per_chunk)
+                   for w in scene.walls)
+    with tempfile.TemporaryDirectory() as tmp:
+        wall16, launches, out = cli_render(
+            [str(mini), "30", "--engine", "radiosity"], tmp, 27)
+        peak16 = torch.cuda.max_memory_allocated()
+        for art in ("geometry", "collisionMap"):
+            check((out / f"{art}.json").read_bytes()
+                  == (FIXTURES / f"mini_{art}.json").read_bytes(),
+                  f"{art}.json differs from the fixture")
+    check(launches["aa_nearest"] == n_chunks,
+          f"aa_nearest: {launches['aa_nearest']} launches, want {n_chunks}")
+    check(sum(launches.values()) == n_chunks,
+          f"radiosity launched other kernels: {launches}")
+    results["aa_nearest"]["launches"] = n_chunks
+
+    def split(scene_, rad):
+        """Seconds of the form factors and of the relaxation, the table's
+        bytes, and a profiled rerun of each (device time by group)."""
+        rects, aa, src = radiosity.prepare(scene_, rad, dev)
+        l0 = torch.from_numpy(radiosity.level0_arena_indices(scene_)).to(dev)
+        plan = build_plan(rects)
+        sync()
+        t0 = time.perf_counter()
+        ids = radiosity.form_factors(scene_, aa, rad)
+        sync()
+        t1 = time.perf_counter()
+        radiosity.relax(src, ids, l0, plan, rad)
+        sync()
+        t2 = time.perf_counter()
+        return dict(
+            form_factor_s=t1 - t0, relax_s=t2 - t1,
+            table_bytes=ids.numel() * 4,
+            form_factor_profile=profiled(
+                lambda: radiosity.form_factors(scene_, aa, rad)),
+            relax_profile=profiled(
+                lambda: radiosity.relax(src, ids, l0, plan, rad)))
+
+    split16 = split(scene, cfg.radiosity)
+    say("cli_radiosity", scene="mini", rays=cfg.radiosity.rays_per_texel,
+        tiles=27, wall_s=wall16, launches=n_chunks, peak_bytes=peak16,
+        **split16)
+
+    # 17. both engines on the 4x4 tiling at their defaults ------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        png = pathlib.Path(tmp) / "mini_4x4.png"
+        make_layout.tiled(str(mini), str(png), 4, 4)
+        scene6, _ = compile_scene(str(png), 30.0, cfg)
+    k17 = kernels_vs_plain(nearest_inputs(scene6, dev, cfg), 3, 1,
+                           fused_texels=8192)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    ao6 = run_engine(scene6, cfg_ao, dev)
+    wall_ao6 = time.perf_counter() - t0
+    ao_launches6 = read_launches()["ao_fused"]
+    ao_peak6 = torch.cuda.max_memory_allocated()
+    check(ao_launches6 == 1, f"4x4 AO: {ao_launches6} launches")
+    l06 = scene6.level0_mask()
+    check(np.isfinite(ao6).all() and (ao6[l06] > 0).all(),
+          "4x4 AO not finite and positive")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    rad6 = run_engine(scene6, cfg_rad, dev)
+    wall_rad6 = time.perf_counter() - t0
+    rad_launches6 = read_launches()["aa_nearest"]
+    rad_peak6 = torch.cuda.max_memory_allocated()
+    n_chunks6 = sum(-(-num_tiles(w) // cfg.radiosity.texels_per_chunk)
+                    for w in scene6.walls)
+    check(rad_launches6 == n_chunks6,
+          f"4x4 radiosity: {rad_launches6} launches, want {n_chunks6}")
+    check(np.isfinite(rad6).all() and rad6.sum() > 0
+          and (rad6 >= 0).all(), "4x4 radiosity not finite and positive")
+    say("apartment_4x4_ao_radiosity", rects=len(scene6.walls),
+        texels=scene6.num_texels, level0_texels=int(l06.sum()),
+        ao=dict(wall_s=wall_ao6, launches=ao_launches6, peak_bytes=ao_peak6,
+                kernel_share_of_wall=k17["ao_fused"]["ms"] / 1e3 / wall_ao6),
+        radiosity=dict(rays=cfg.radiosity.rays_per_texel, wall_s=wall_rad6,
+                       launches=rad_launches6, peak_bytes=rad_peak6,
+                       **split(scene6, cfg.radiosity)),
+        kernels=k17)
 
 
 def main():
@@ -609,6 +1075,8 @@ def main():
         fold_kernel_ms_per_batch=ms11b, diff_plain_ms_per_batch=plain11f,
         fold_plain_ms_per_batch=plain11b, diff_bound_ms=b11f[0],
         fold_bound_ms=b11b[0], production_ms_per_batch=ms6)
+
+    ao_radiosity_phases(dev, results, make_layout)
 
     print(json.dumps({"kernels": [dict(KERNELS[k], **results[k])
                                   for k in KERNELS]}))

@@ -5,10 +5,11 @@
 
 Same positional arguments, flags and defaults as `flatmatch_tpu.cli render`
 and `fit` (their production defaults: --device-rng on, --splat
-inkernel_i8), plus `--device` (default cuda). Flags and values outside the
-ported slices exit with an error that names ROADMAP.md rather than being
-ignored. The other commands of the JAX package (package, serve, debug) are
-not ported yet.
+inkernel_i8), plus `--device` (default cuda). `render` runs the engines
+photon_pallas (the default), ambient_occlusion (fused, or --ao-chunked) and
+radiosity. Flags and values outside the ported slices exit with an error
+that names ROADMAP.md rather than being ignored. The other commands of the
+JAX package (package, serve, debug) are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,13 +19,17 @@ import sys
 
 from .config import DEFAULT_CONFIG, Engine
 
+PORTED_ENGINES = tuple(e.value for e in (
+    Engine.PHOTON_PALLAS, Engine.AMBIENT_OCCLUSION, Engine.RADIOSITY))
+
 
 def _add_engine_flags(p: argparse.ArgumentParser):
     p.add_argument(
         "--engine",
         choices=[e.value for e in Engine],
         default=DEFAULT_CONFIG.engine.value,
-        help="illumination engine (only photon_pallas is ported)",
+        help="illumination engine (photon_xla and photon_oracle are not "
+        "ported)",
     )
     p.add_argument(
         "--samples-per-area",
@@ -57,7 +62,7 @@ def _add_engine_flags(p: argparse.ArgumentParser):
         "--radiosity-rays",
         type=int,
         default=DEFAULT_CONFIG.radiosity.rays_per_texel,
-        help="form-factor rays per texel (radiosity engine, not ported)",
+        help="form-factor rays per texel (radiosity engine)",
     )
     p.add_argument(
         "--radiosity-iterations",
@@ -68,11 +73,14 @@ def _add_engine_flags(p: argparse.ArgumentParser):
         "--ao-chunk",
         type=int,
         default=DEFAULT_CONFIG.ao.texels_per_chunk,
-        help="AO texels per device dispatch (AO engine, not ported)",
+        help="AO texels per chunk of the general-intersector AO pass; the "
+        "axis-aligned AO passes size their own chunks and do not read it",
     )
     p.add_argument("--ao-fused", dest="ao_fused", action="store_true",
-                   default=True)
-    p.add_argument("--ao-chunked", dest="ao_fused", action="store_false")
+                   default=True,
+                   help="AO with the rays made inside the kernel (default)")
+    p.add_argument("--ao-chunked", dest="ao_fused", action="store_false",
+                   help="AO with the rays expanded on the device in chunks")
     p.add_argument("--out", default=".", help="output directory")
     p.add_argument(
         "--checkpoint",
@@ -100,8 +108,8 @@ def _add_engine_flags(p: argparse.ArgumentParser):
     p.add_argument(
         "--device",
         default="cuda",
-        help="torch device to render on: cuda (the CUDA kernel) or cpu "
-        "(the plain PyTorch version)",
+        help="torch device to render on: cuda (the CUDA kernels) or cpu "
+        "(their plain PyTorch versions)",
     )
 
 
@@ -131,7 +139,7 @@ def _build_cfg(args):
 def _outside_slice(args) -> list:
     """What this invocation asks for that the port does not run yet."""
     out = []
-    if args.engine != Engine.PHOTON_PALLAS.value:
+    if args.engine not in PORTED_ENGINES:
         out.append(f"--engine {args.engine}")
     if not args.device_rng:
         out.append("--no-device-rng (threefry draws)")

@@ -22,7 +22,6 @@ tensors only.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import List, Tuple
 
 import numpy as np
@@ -30,24 +29,22 @@ import torch
 
 from ..config import PhotonConfig
 from ..ops import rng
-from ..ops.aa_scene import (
-    A_BASE, A_CU, A_CV, A_HLEN, A_HS, A_HT, A_KTU, A_KTV, A_O, A_SN, A_WLEN,
-    A_WS, A_WT, F_AA, GROUP_UV, AARects,
-)
+from ..ops.aa_query import MISS, check_on, check_table, nearest_hit
+from ..ops.aa_scene import A_BASE, A_HT, A_WT, F_AA, AARects
 from ..ops.device_scene import Emitters
+from ..ops.sampling import TWO_PI_REF, base_cols
+from ..utils.cuda_build import check_smem, launch
 
-MISS = 1e30
-TWO_PI_REF = 2.0 * 3.141592       # ops/sampling.py of the JAX package
 THREADS = 256                      # photons per CUDA block
 WARPS = THREADS // 32
 PLAIN_CHUNK = 16384                # photons per step of the plain version
-SMEM_LIMIT = 232448                # dynamic shared memory of a block on sm_90
 
 
 def unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to flatmatch_tpu_torch yet; the port runs "
-        f"the default photon render and the fit (see ROADMAP.md)"
+        f"the default photon render, the fit and the ambient-occlusion and "
+        f"radiosity engines on axis-aligned scenes (see ROADMAP.md)"
     )
 
 
@@ -93,83 +90,6 @@ def tail_batch_size(last_valid: int, batch_size: int) -> int:
 # --------------------------------------------------------------------------
 # plain PyTorch version
 # --------------------------------------------------------------------------
-def _normalize(x, y, z):
-    # 1/sqrt as reciprocal(sqrt): IEEE-rounded on the CPU and on the card,
-    # and what the kernel computes (1.0f / sqrtf)
-    inv = torch.reciprocal(torch.sqrt(x * x + y * y + z * z))
-    return x * inv, y * inv, z * inv
-
-
-def _base_cols(nx, ny, nz):
-    """build_base (photonmap.cl:43-48) on per-photon components."""
-    colinear = torch.abs(nz) >= 0.999999
-    zero = torch.zeros_like(nx)
-    one = torch.ones_like(nx)
-    u0x = zero
-    u0y = torch.where(colinear, one, zero)
-    u0z = torch.where(colinear, zero, one)
-    vx = u0y * nz - u0z * ny
-    vy = u0z * nx - u0x * nz
-    vz = u0x * ny - u0y * nx
-    vx, vy, vz = _normalize(vx, vy, vz)
-    ux = vy * nz - vz * ny
-    uy = vz * nx - vx * nz
-    uz = vx * ny - vy * nx
-    ux, uy, uz = _normalize(ux, uy, uz)
-    return (ux, uy, uz), (vx, vy, vz)
-
-
-def _nearest_hit(fields, group_counts, p, dr):
-    """Nearest front-face hit over the three axis groups: per group an
-    argmin over [photons, rects] (first minimum), then a strict-< merge
-    across groups, which keeps the rect loop's first-min tie break. Also
-    returns the winning rect's table column (-1 on a miss)."""
-    inv = tuple(torch.reciprocal(x) for x in dr)
-    n = p[0].shape[0]
-    best = torch.full((n,), MISS, dtype=torch.float32, device=p[0].device)
-    btex = torch.zeros((n,), dtype=torch.int32, device=p[0].device)
-    baxis = torch.zeros((n,), dtype=torch.int32, device=p[0].device)
-    bsign = torch.zeros((n,), dtype=torch.float32, device=p[0].device)
-    bslot = torch.full((n,), -1, dtype=torch.int64, device=p[0].device)
-    start = 0
-    for a in range(3):
-        count = group_counts[a]
-        if count == 0:
-            continue
-        first = start
-        F = fields[:, start:start + count]
-        start += count
-        au, av = GROUP_UV[a]
-        fac = (F[A_O][None, :] - p[a][:, None]) * inv[a][:, None]
-        front = (dr[a] < 0)[:, None] ^ (F[A_SN] < 0)[None, :]
-        u = (p[au][:, None] + dr[au][:, None] * fac - F[A_CU]) * F[A_WS]
-        v = (p[av][:, None] + dr[av][:, None] * fac - F[A_CV]) * F[A_HS]
-        # compare chain: false on NaN, like the JAX min-tree
-        valid = (front & (fac >= 0) & (u >= 0) & (F[A_WLEN] - u >= 0)
-                 & (v >= 0) & (F[A_HLEN] - v >= 0))
-        dist = torch.where(valid, fac, torch.full_like(fac, MISS))
-        j = torch.argmin(dist, dim=1)
-        jc = j[:, None]
-        dmin = dist.gather(1, jc)[:, 0]
-        upd = dmin < best
-        Fj = F[:, j]
-        zero = torch.zeros_like(dmin)
-        tx = torch.minimum(torch.floor(u.gather(1, jc)[:, 0] * Fj[A_KTU]),
-                           Fj[A_WT] - 1.0)
-        ty = torch.minimum(torch.floor(v.gather(1, jc)[:, 0] * Fj[A_KTV]),
-                           Fj[A_HT] - 1.0)
-        tx = torch.where(upd, tx, zero).to(torch.int32)
-        ty = torch.where(upd, ty, zero).to(torch.int32)
-        tex = (Fj[A_BASE].to(torch.int32) + ty * Fj[A_WT].to(torch.int32)
-               + tx)
-        best = torch.where(upd, dmin, best)
-        btex = torch.where(upd, tex, btex)
-        baxis = torch.where(upd, torch.full_like(baxis, a), baxis)
-        bsign = torch.where(upd, Fj[A_SN], bsign)
-        bslot = torch.where(upd, j + first, bslot)
-    return best, btex, baxis, bsign, bslot
-
-
 def _trace_chunk(fields, group_counts, em, seed, n_valid, cfg, pid,
                  albedo_aa=None):
     D = cfg.max_depth
@@ -200,8 +120,8 @@ def _trace_chunk(fields, group_counts, em, seed, n_valid, cfg, pid,
     nn = torch.sqrt(1.0 - r * r)
     if float(em[15]) > 0:
         uu = torch.abs(uu)
-    (ux, uy, uz), (vx, vy, vz) = _base_cols(enx * ones, eny * ones,
-                                            enz * ones)
+    (ux, uy, uz), (vx, vy, vz) = base_cols(enx * ones, eny * ones,
+                                           enz * ones)
     dirx = ux * uu + vx * vv + enx * nn
     diry = uy * uu + vy * vv + eny * nn
     dirz = uz * uu + vz * vv + enz * nn
@@ -212,7 +132,7 @@ def _trace_chunk(fields, group_counts, em, seed, n_valid, cfg, pid,
     alive = (pid < n_valid).to(torch.float32)
     idx, col, ridx = [], [], []
     for d in range(D):
-        best, btex, baxis, bsign, bslot = _nearest_hit(
+        best, btex, baxis, bsign, bslot = nearest_hit(
             fields, group_counts, (px, py, pz), (dirx, diry, dirz)
         )
         hit = best < MISS * 0.5
@@ -236,7 +156,7 @@ def _trace_chunk(fields, group_counts, em, seed, n_valid, cfg, pid,
         duu = rd * torch.cos(phid)
         dvv = rd * torch.sin(phid)
         dnn = torch.sqrt(1.0 - rd * rd)
-        (bux, buy, buz), (bvx, bvy, bvz) = _base_cols(hnx, hny, hnz)
+        (bux, buy, buz), (bvx, bvy, bvz) = base_cols(hnx, hny, hnz)
         ddx = bux * duu + bvx * dvv + hnx * dnn
         ddy = buy * duu + bvy * dvv + hny * dnn
         ddz = buz * duu + bvz * dvv + hnz * dnn
@@ -358,30 +278,13 @@ def _check_batch(fields, group_counts, em_vec, n_valid, batch_size,
     """Checks shared by the three wrappers; `more` names further f32
     tensors that must lie contiguous on the scene table's device. Returns
     the rect count N."""
-    if fields.dim() != 2 or fields.shape[0] != F_AA:
-        raise ValueError(f"scene table must be [{F_AA}, N], got "
-                         f"{tuple(fields.shape)}")
-    n = fields.shape[1]
-    if sum(group_counts) != n:
-        raise ValueError(f"group_counts {group_counts} do not sum to {n}")
+    n = check_table(fields, group_counts)
     if tuple(em_vec.shape) != (16,):
         raise ValueError(f"em_vec must be [16], got {tuple(em_vec.shape)}")
-    dev = fields.device
-    for name, t in (("fields", fields), ("em_vec", em_vec), *more.items()):
-        if (t.dtype != torch.float32 or t.device != dev
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous float32 on {dev}")
+    check_on(fields.device, em_vec=em_vec, **more)
     if not 0 <= int(n_valid) <= int(batch_size):
         raise ValueError(f"n_valid={n_valid} outside [0, {batch_size}]")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {dev}")
     return n
-
-
-def _check_smem(kernel: str, nbytes: int, n: int):
-    if nbytes > SMEM_LIMIT:
-        raise ValueError(f"{n} rects need {nbytes} bytes of shared memory "
-                         f"in {kernel}; a block has {SMEM_LIMIT}")
 
 
 def _check_acc(out, num_texels, dev):
@@ -408,19 +311,6 @@ def _trace_args(fields, group_counts, seed, n_valid, cfg, num_texels):
     )
 
 
-def _launch(name: str, dev, *args):
-    """Call C entry point `name` on the current stream of `dev`; raise on
-    a non-zero CUDA error."""
-    from ..utils.cuda_build import load_library
-
-    fn = getattr(load_library(), name)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*args, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
-
-
 def trace_splat_wide_rng_i8(
     fields: torch.Tensor, group_counts, em_vec: torch.Tensor, seed: int,
     n_valid: int, batch_size: int, cfg: PhotonConfig, num_texels: int,
@@ -444,8 +334,8 @@ def trace_splat_wide_rng_i8(
             fields, group_counts, em_vec, seed, n_valid, batch_size, cfg
         )
         return splat_i8_plain(idx, col, num_texels, inv_s, out)
-    _check_smem("trace_splat_wide_rng", 4 * F_AA * n, n)
-    _launch("fm_trace_splat_wide_rng_i8", dev,
+    check_smem("trace_splat_wide_rng", 4 * F_AA * n, n)
+    launch("fm_trace_splat_wide_rng_i8", dev,
             fields.data_ptr(), em_vec.data_ptr(), out.data_ptr(),
             *_trace_args(fields, group_counts, seed, n_valid, cfg,
                          num_texels),
@@ -490,8 +380,8 @@ def trace_splat_wide_diff_rng_i8(
             albedo_aa,
         )
         return splat_i8_plain(idx, col, num_texels, float(inv_scale), out)
-    _check_smem("trace_splat_wide_diff_rng", 4 * (F_AA + 1) * n, n)
-    _launch("fm_trace_splat_wide_diff_rng_i8", dev,
+    check_smem("trace_splat_wide_diff_rng", 4 * (F_AA + 1) * n, n)
+    launch("fm_trace_splat_wide_diff_rng_i8", dev,
             fields.data_ptr(), albedo_aa.data_ptr(), em_vec.data_ptr(),
             inv_scale.data_ptr(), out.data_ptr(),
             *_trace_args(fields, group_counts, seed, n_valid, cfg,
@@ -540,12 +430,12 @@ def trace_fold_wide_rng(
             albedo_aa,
         )
         return fold_plain(idx, col, ridx, g_c, n)
-    _check_smem("trace_fold_wide_rng", fold_smem_bytes(n, cfg.max_depth), n)
+    check_smem("trace_fold_wide_rng", fold_smem_bytes(n, cfg.max_depth), n)
     blocks = -(-int(n_valid) // THREADS)
     part = torch.empty(((n + 1) * max(blocks, 1),), dtype=torch.float32,
                        device=dev)
     out = torch.empty((n + 1,), dtype=torch.float32, device=dev)
-    _launch("fm_trace_fold_wide_rng", dev,
+    launch("fm_trace_fold_wide_rng", dev,
             fields.data_ptr(), albedo_aa.data_ptr(), em_vec.data_ptr(),
             g_c.data_ptr(), part.data_ptr(), out.data_ptr(),
             *_trace_args(fields, group_counts, seed, n_valid, cfg,

@@ -1,9 +1,11 @@
 """Top-level render pipeline: layout PNG -> collision map JSON -> scene
-compile -> geometry JSON -> photon engine -> exposure normalization ->
-per-wall lightmap tiles (main.c:17-101).
+compile -> geometry JSON -> illumination engine -> per-wall lightmap tiles
+(main.c:17-101).
 
-Counterpart of flatmatch_tpu/render.py for the default photon render. Every
-function that touches tensors takes an explicit `device`.
+Counterpart of flatmatch_tpu/render.py for three engines on axis-aligned
+scenes: the default photon render (then exposure normalization), ambient
+occlusion (fused by default, chunked with cfg.ao.fused off) and radiosity.
+Every function that touches tensors takes an explicit `device`.
 """
 from __future__ import annotations
 
@@ -96,12 +98,28 @@ def downsample_supersampled(
 
 def run_engine(scene: geometry.Scene, cfg: RenderConfig,
                device="cuda") -> np.ndarray:
-    """Run the photon engine on `device` and apply the exposure
-    normalization (main.c:60-79). Only the default photon render is ported:
-    engine photon_pallas, device RNG, in-kernel 7-bit splat."""
+    """Run `cfg.engine` on `device` and return the [num_texels, 3] arena
+    (main.c:60-79). Ported engines: photon_pallas at the device RNG and
+    in-kernel 7-bit splat (with the exposure normalization),
+    ambient_occlusion and radiosity."""
     from .engines import photon_wide
     from .ops.aa_scene import pack_aa
 
+    if cfg.engine is Engine.AMBIENT_OCCLUSION:
+        from .engines import ao
+
+        aa = pack_aa(scene.walls, device=device)
+        if aa is None:
+            raise unsupported("ambient occlusion of a scene with "
+                              "non-axis-aligned rects or a texel arena of "
+                              "2^24 or more")
+        if cfg.ao.fused:
+            return ao.render_ao_fused(scene, aa, cfg.ao)
+        return ao.render_ao(scene, aa, cfg.ao)
+    if cfg.engine is Engine.RADIOSITY:
+        from .engines import radiosity
+
+        return radiosity.render_radiosity(scene, cfg.radiosity, device)
     if cfg.engine is not Engine.PHOTON_PALLAS:
         raise unsupported(f"engine {cfg.engine.value!r}")
     aa = pack_aa(scene.walls, device=device)
@@ -159,9 +177,10 @@ def render(
         texels = downsample_supersampled(scene, scene_ss, texels_ss, ss)
     else:
         texels = run_engine(scene, cfg, device)
-    # the photon paths export without tintExtra (main.c:88-91)
+    # tintExtra for AO and radiosity, not the photon path (main.c:88-91)
+    tint_extra = cfg.engine in (Engine.AMBIENT_OCCLUSION, Engine.RADIOSITY)
     tile_paths = tiles_io.save_tiles(
-        scene.walls, texels, str(out / "tiles"), False, dilate_seams
+        scene.walls, texels, str(out / "tiles"), tint_extra, dilate_seams
     )
     if dump_raw:
         for i, r in enumerate(scene.walls):

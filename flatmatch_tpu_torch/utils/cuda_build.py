@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 Every `flatmatch_tpu_torch/csrc/*.cu` file is compiled by its own `nvcc`
 process, all started together, and the objects are linked into one shared
@@ -6,7 +6,9 @@ library with a plain C interface, loaded through ctypes. The library goes to
 `flatmatch_tpu_torch/_build/` under a name keyed by a hash of the sources,
 the headers and the flags, so an edit of any rebuilds it on first use and a
 fresh checkout builds it without a separate step. Nothing here runs when a
-module is imported.
+module is imported. `launch` calls an entry point on PyTorch's current
+stream and raises on a CUDA error; `check_smem` refuses a scene table too
+large for a block's shared memory.
 """
 from __future__ import annotations
 
@@ -37,7 +39,11 @@ ENTRY_POINTS = {
     "fm_trace_splat_wide_rng_i8": [_P] * 3 + [_I] * 8 + [_F] * 10 + [_P],
     "fm_trace_splat_wide_diff_rng_i8": [_P] * 5 + [_I] * 8 + [_F] * 9 + [_P],
     "fm_trace_fold_wide_rng": [_P] * 6 + [_I] * 8 + [_F] * 9 + [_P],
+    "fm_aa_nearest": [_P] * 5 + [_I] * 5 + [_P],
+    "fm_nearest_distances": [_P] * 4 + [_I] * 5 + [_F] + [_P],
+    "fm_ao_fused": [_P] * 6 + [_I] * 6 + [_F] + [_P],
 }
+SMEM_LIMIT = 232448   # dynamic shared memory of a block on sm_90
 
 _lib = None
 build_info = {}   # "seconds", "log" (ptxas register and spill report), "path"
@@ -141,3 +147,23 @@ def load_library() -> ctypes.CDLL:
                       path=str(out))
     _lib = lib
     return lib
+
+
+def check_smem(kernel: str, nbytes: int, n_rects: int):
+    """Raise if a kernel would need more shared memory than a block has."""
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{n_rects} rects need {nbytes} bytes of shared "
+                         f"memory in {kernel}; a block has {SMEM_LIMIT}")
+
+
+def launch(name: str, dev, *args):
+    """Call C entry point `name` on the current stream of CUDA device
+    `dev`; raise on a non-zero CUDA error."""
+    import torch
+
+    fn = getattr(load_library(), name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")

@@ -94,8 +94,8 @@ def test_supersample_render(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--engine", "photon_xla"],
-    ["--engine", "ambient_occlusion"],
-    ["--engine", "radiosity"],
+    ["--engine", "photon_oracle"],
+    ["--splat", "inkernel"],
     ["--no-device-rng"],
     ["--splat", "fused"],
     ["--splat", "scatter"],
@@ -114,7 +114,7 @@ def test_cli_refuses_what_the_slice_does_not_run(flags, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("change", [
-    dict(engine=Engine.RADIOSITY),
+    dict(engine=Engine.PHOTON_ORACLE),
     dict(photon=dict(device_rng=False)),
     dict(photon=dict(splat="fused_i8")),
 ])
