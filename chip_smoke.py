@@ -59,10 +59,10 @@ KERNELS = {
 }
 # The axis-aligned AO of mini against the reference build's dump: the
 # bands of tests/test_ao_parity.py, except the mean, which there holds the
-# JAX package's general XLA intersector (4.8e-5). Its axis-aligned kernels,
-# which the port runs, measure 1.222e-4 (ao_pallas.render_ao in interpret
-# mode on the CPU) and the port 1.198e-4: a few rays that graze a coplanar
-# wall's edge land on its other side (tests/test_torch_ao.py).
+# JAX package's general XLA intersector (4.8e-5). Its axis-aligned AO,
+# which the port matches texel by texel, misses 1e-4 on mini: a few rays
+# that graze a coplanar wall's edge land on its other side
+# (tests/test_torch_ao.py::test_mini_ao_matches_jax_axis_aligned).
 MINI_AA_MEAN = 1.25e-4
 # Roofline of the trace kernels (H100 SXM datasheet rates:
 # 3.35 TB/s HBM, 67 TFLOP/s float32 outside the tensor cores). Operations
@@ -316,7 +316,7 @@ def nearest_inputs(scene, dev, cfg):
     aa = pack_aa(scene.walls, dev)
     k_pad = len(ao.direction_weights(aoc.geosphere_level, 8))
     centers, walls, _ = ao._texel_tables(scene)
-    chunk = (1 << 21) // k_pad        # render_ao's texels per launch
+    chunk = ao.chunk_texels(aoc.geosphere_level)   # render_ao's launch
     d = torch.from_numpy(ao._padded_dirs(scene, aoc.geosphere_level, k_pad)
                          ).to(dev)[torch.from_numpy(walls[:chunk]).long()
                                    .to(dev)]
@@ -580,8 +580,8 @@ def ao_radiosity_phases(dev, results, make_layout):
             scene, fused), fused_vs_chunked_max_rel=fc, bit_identical=True)
 
     # 14. AO through the CLI: the fused default, then --ao-chunked ---------
-    chunk = (1 << 21) // len(ao.direction_weights(cfg.ao.geosphere_level, 8))
-    expect = {"ao_fused": 1, "nearest_distances": -(-T0 // chunk)}
+    expect = {"ao_fused": 1, "nearest_distances":
+              -(-T0 // ao.chunk_texels(cfg.ao.geosphere_level))}
     cli14 = {}
     for flags, name in (([], "ao_fused"), (["--ao-chunked"],
                                            "nearest_distances")):

@@ -17,7 +17,9 @@
 //     2^24 it equals the TPU kernel's f32 id).
 // Every kernel that includes this builds with -fmad=false, so each product
 // is rounded on its own, as the plain PyTorch version
-// (flatmatch_tpu_torch/ops/aa_query.py nearest_hit) rounds it.
+// (flatmatch_tpu_torch/ops/aa_query.py nearest_hit) rounds it. The photon
+// trace keeps its own copy of the loop: a change to these rules goes into
+// both.
 #pragma once
 
 #include "trace_wide.cuh"  // table rows, kMiss, kHitBelow, stage()

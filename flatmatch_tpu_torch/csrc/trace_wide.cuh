@@ -213,7 +213,9 @@ __device__ __forceinline__ void trace_photon(const float* __restrict__ s,
   for (int d = 0; d < D; ++d) {
     const float pos[3] = {px, py, pz};
     const float dr[3] = {dirx, diry, dirz};
-    // division by zero gives inf; the bounds test rejects those rects
+    // division by zero gives inf; the bounds test rejects those rects.
+    // aa_nearest.cuh (aa_nearest_hit) repeats this rect loop for the AO
+    // and radiosity kernels: a change to its rules goes into both.
     const float inv[3] = {1.0f / dirx, 1.0f / diry, 1.0f / dirz};
 
     float best = kMiss;

@@ -32,6 +32,7 @@ f32 = np.float32
 NUDGE = float(f32(1e-5))       # ray origins start 1e-5 along the direction
 K_BLOCK = 128                  # directions per pass of the fused kernel
 PLAIN_TEXELS = 256             # texels per step of the plain fused version
+RAYS_PER_LAUNCH = 1 << 21      # rays per launch of the chunked pass
 
 
 def _create_base_np(n: np.ndarray):
@@ -95,6 +96,12 @@ def direction_weights(level: int, multiple: int) -> np.ndarray:
     fac = np.zeros(k_pad, f32)
     fac[:len(vs)] = vs[:, 2].astype(f32)
     return fac
+
+
+def chunk_texels(level: int) -> int:
+    """Texels per `nearest_distances` launch of `render_ao` at a geosphere
+    level: RAYS_PER_LAUNCH rays of k_pad directions each."""
+    return max(1, RAYS_PER_LAUNCH // len(direction_weights(level, 8)))
 
 
 def _padded_dirs(scene: Scene, level: int, k_pad: int) -> np.ndarray:
@@ -219,11 +226,10 @@ def render_ao_fused(scene: Scene, aa: AARects, cfg: AoConfig) -> np.ndarray:
     return ao_fused_write_back(scene, sums.cpu().numpy(), gather_idx, norm)
 
 
-def render_ao(scene: Scene, aa: AARects, cfg: AoConfig,
-              rays_per_call: int = 1 << 21) -> np.ndarray:
-    """Full AO pass with rays expanded on the device, `rays_per_call` rays
-    per `nearest_distances` launch (ao_pallas.render_ao, the chunked
-    path); returns the [num_texels, 3] arena."""
+def render_ao(scene: Scene, aa: AARects, cfg: AoConfig) -> np.ndarray:
+    """Full AO pass with rays expanded on the device, `chunk_texels`
+    texels per `nearest_distances` launch (ao_pallas.render_ao, the
+    chunked path); returns the [num_texels, 3] arena."""
     fac_np = direction_weights(cfg.geosphere_level, 8)
     k_pad = len(fac_np)
     centers, wall_of_texel, _ = _texel_tables(scene)
@@ -235,7 +241,7 @@ def render_ao(scene: Scene, aa: AARects, cfg: AoConfig,
     walls_t = torch.from_numpy(wall_of_texel).to(dev).long()
     denom = fac.sum() * float(cfg.normalization)
     T0 = len(centers)
-    chunk = max(1, int(rays_per_call) // k_pad)
+    chunk = chunk_texels(cfg.geosphere_level)
     vals = []
     for s in range(0, T0, chunk):
         c = centers_t[s:s + chunk]
