@@ -78,7 +78,7 @@ trace_fold_kernel(const float* __restrict__ scene,
   if (pi < P.n_valid) {
     const uint32_t p = static_cast<uint32_t>(pi);
     trace_photon<true>(
-        s_scene, s_alb, em, P, p,
+        s_scene, s_alb, em, P, HashDraw{p, P.seed},
         [&](int d, int btex, float cr, float cg, float cb, int slot) {
           float w = 0.0f;
           if (static_cast<unsigned>(btex) <

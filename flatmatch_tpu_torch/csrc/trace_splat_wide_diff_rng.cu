@@ -47,7 +47,7 @@ trace_splat_diff_kernel(const float* __restrict__ scene,
   if (pi >= P.n_valid) return;
   const uint32_t p = static_cast<uint32_t>(pi);
   const float inv_s = *inv_s_ptr;
-  trace_photon<true>(s_scene, s_alb, em, P, p,
+  trace_photon<true>(s_scene, s_alb, em, P, HashDraw{p, P.seed},
                      [&](int d, int btex, float cr, float cg, float cb,
                          int) {
                        splat_i8(acc, P, inv_s, p, d, btex, cr, cg, cb);

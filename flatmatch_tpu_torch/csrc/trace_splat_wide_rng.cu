@@ -43,7 +43,7 @@ trace_splat_kernel(const float* __restrict__ scene,
   // 0 (floor(0 * inv_s + dither) == 0), so they are not traced
   if (pi >= P.n_valid) return;
   const uint32_t p = static_cast<uint32_t>(pi);
-  trace_photon<false>(s_scene, nullptr, em, P, p,
+  trace_photon<false>(s_scene, nullptr, em, P, HashDraw{p, P.seed},
                       [&](int d, int btex, float cr, float cg, float cb,
                           int) {
                         splat_i8(acc, P, P.inv_s, p, d, btex, cr, cg, cb);

@@ -1,11 +1,12 @@
-// The photon trace shared by the port's three wide kernels: counter-hash
-// draws, emission and max_depth axis-aligned bounces of one photon, with a
-// callback at every live bounce's deposit.
+// The photon trace shared by the port's wide kernels: the draws (counter
+// hash, or uniforms passed in), emission and max_depth axis-aligned bounces
+// of one photon, with a callback at every live bounce's deposit.
 //
 // It is the body of the TPU factory flatmatch_tpu/engines/
 // photon_pallas_wide.py _make_kernel (:105-733) for one photon:
-//   - kDiff = false: the production trace (scalar albedo; rows 1 and 2 of
-//     the kernel table), used by trace_splat_wide_rng.cu;
+//   - kDiff = false: the production trace (scalar albedo; rows 1-4 of the
+//     kernel table), used by trace_splat_wide_rng.cu and
+//     trace_deposits_wide.cu;
 //   - kDiff = true: the differentiable tier (:290-292, :373-379, :494):
 //     the albedo of a diffuse hit is the per-slot albedo of the winning
 //     rect j, and the callback gets j at a diffuse hit (-1 at a mirror
@@ -91,7 +92,18 @@ __device__ __forceinline__ float draw(uint32_t p, uint32_t seed, int c) {
       fmix32(p * 0x9E3779B9u + (seed + static_cast<uint32_t>(c) * 97929u)));
 }
 
+// The draw sources of trace_photon: a functor that returns draw column c of
+// its photon. HashDraw is the counter hash above; the stream trace of
+// trace_deposits_wide.cu adds one that loads precomputed uniforms.
+struct HashDraw {
+  uint32_t p, seed;
+  __device__ __forceinline__ float operator()(int c) const {
+    return draw(p, seed, c);
+  }
+};
+
 // Dither of deposit key p*3D + 3d + ch, hashed as fmix32(key * 0x9E3779B9).
+// The stream splat (splat_stream.cu) keys it by stream row * 3 + ch.
 __device__ __forceinline__ float dither(uint32_t key) {
   return unit24(fmix32(key * 0x9E3779B9u));
 }
@@ -161,23 +173,24 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
-// Trace photon p of the batch. `s` is the [F_AA][N] scene table in shared
-// memory, `s_alb` the per-slot albedo row (read only when kDiff), `em` the
-// 16-float emitter vector. At every bounce whose hit keeps the photon
-// alive, after the bounce's attenuation, it calls
+// Trace one photon of the batch, whose draw column c is draws(c) (HashDraw,
+// or the uniforms of trace_deposits_wide.cu). `s` is the [F_AA][N] scene
+// table in shared memory, `s_alb` the per-slot albedo row (read only when
+// kDiff), `em` the 16-float emitter vector. At every bounce whose hit keeps
+// the photon alive, after the bounce's attenuation, it calls
 //   deposit(d, btex, cr, cg, cb, slot)
 // with slot = the winning rect's table column at a diffuse hit when kDiff,
 // else -1. A photon that misses stops: it would deposit exactly 0 at this
 // and every later bounce.
-template <bool kDiff, class Deposit>
+template <bool kDiff, class Draw, class Deposit>
 __device__ __forceinline__ void trace_photon(const float* __restrict__ s,
                                              const float* __restrict__ s_alb,
                                              const float* __restrict__ em,
-                                             const Params& P, uint32_t p,
+                                             const Params& P,
+                                             const Draw& draws,
                                              Deposit&& deposit) {
   const int N = P.n_rects;
 #define S(row, j) s[(row) * N + (j)]
-  const uint32_t seed = P.seed;
 
   // --- emission (photonmap.cl:173-181) ------------------------------------
   const float epx = em[0], epy = em[1], epz = em[2];
@@ -187,10 +200,10 @@ __device__ __forceinline__ void trace_photon(const float* __restrict__ s,
   float cr = em[12], cg = em[13], cb = em[14];
   const float is_window = em[15];
 
-  const float dxe = draw(p, seed, 0);
-  const float dye = draw(p, seed, 1);
-  const float r = sqrtf(draw(p, seed, 2));
-  const float phi = P.two_pi * draw(p, seed, 3);
+  const float dxe = draws(0);
+  const float dye = draws(1);
+  const float r = sqrtf(draws(2));
+  const float phi = P.two_pi * draws(3);
   float uu = r * cosf(phi);
   const float vv = r * sinf(phi);
   const float nn = sqrtf(1.0f - r * r);
@@ -281,9 +294,9 @@ __device__ __forceinline__ void trace_photon(const float* __restrict__ s,
     const float hnz = (baxis == 2) ? bsign : 0.0f;
 
     // --- Russian roulette + bounce (photonmap.cl:236-254) ------------------
-    const float u_rr = draw(p, seed, 4 + 3 * d);
-    const float u1 = draw(p, seed, 5 + 3 * d);
-    const float u2 = draw(p, seed, 6 + 3 * d);
+    const float u_rr = draws(4 + 3 * d);
+    const float u1 = draws(5 + 3 * d);
+    const float u2 = draws(6 + 3 * d);
     // the diffuse/mirror choice reads pz at the hit point
     const bool diffuse = (pz > P.mirror_z) || (u_rr > P.rr);
     if (diffuse) {

@@ -27,8 +27,6 @@ from ..ops import rng
 from ..ops.aa_scene import AARects
 from ..ops.device_scene import Emitters
 
-LANES = 128   # the JAX renderer's batch quantum (photon_pallas_wide.LANES)
-
 
 def _integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
     """x ** y by the square-and-multiply order of jax.lax.integer_pow, so
@@ -63,12 +61,25 @@ def scale_pair(cfg: PhotonConfig, power_e: torch.Tensor,
             const(1.0 / pw.splat_color_scale(cfg)) / corr)
 
 
+def check_diff_cfg(cfg: PhotonConfig):
+    """Refuse every tier of the differentiable renderer but its production
+    one, the in-kernel 7-bit splat with the device RNG: the diff stream
+    tiers and the threefry tiers are not ported yet."""
+    if cfg.splat != "inkernel_i8":
+        raise pw.unsupported(f"the differentiable renderer with "
+                             f"splat={cfg.splat!r}")
+    if not cfg.device_rng:
+        raise pw.unsupported("the differentiable renderer with the threefry "
+                             "draws (device_rng=False)")
+    pw.check_port_cfg(cfg)
+
+
 def diff_batch_size(cfg: PhotonConfig) -> int:
     """The JAX renderer's batch: photons_per_batch rounded up to a multiple
     of 128 (diff/render.py:371-377). The batch fixes the schedule and so
     the photon set."""
     B = int(cfg.photons_per_batch)
-    return -(-B // LANES) * LANES
+    return -(-B // pw.LANES) * pw.LANES
 
 
 class WideDiffRenderer:
@@ -79,7 +90,7 @@ class WideDiffRenderer:
 
     def __init__(self, emitters: Emitters, num_texels: int,
                  cfg: PhotonConfig, aa: AARects, tail_shrink: bool = True):
-        pw.check_port_cfg(cfg)
+        check_diff_cfg(cfg)
         self.cfg = cfg
         self.B = diff_batch_size(cfg)
         pw.check_i8_accumulator(cfg, self.B)

@@ -1,14 +1,20 @@
 """Axis-aligned photon engine: host schedule, the CUDA kernels' wrappers,
 and their plain PyTorch versions.
 
-Counterpart of flatmatch_tpu/engines/photon_pallas_wide.py on its device-RNG
-paths. One kernel launch per photon batch:
+Counterpart of flatmatch_tpu/engines/photon_pallas_wide.py on its in-kernel
+7-bit tier and its deposit-stream tier. The host de-scales or splats each
+batch into the float32 lightmap in the JAX package's batch order
+(photon_pallas_wide.py:1651-1729). Per photon batch:
 
-- `trace_splat_wide_rng_i8` (`csrc/trace_splat_wide_rng.cu`): the default
-  render. It traces the batch and sums its dithered 7-bit deposits into an
-  exact int32 texel accumulator; the host de-scales each batch into the
-  float32 lightmap in the JAX package's batch order
-  (photon_pallas_wide.py:1651-1729).
+- `trace_splat_wide_rng_i8` (`csrc/trace_splat_wide_rng.cu`): the CLI's
+  default render (device RNG, `inkernel_i8`). It traces the batch and sums
+  its dithered 7-bit deposits into an exact int32 texel accumulator.
+- `trace_deposits_wide_rng` and `trace_deposits_wide`
+  (`csrc/trace_deposits_wide.cu`): the same trace writing a deposit stream
+  in the JAX package's row order (`stream_block`), with the counter-hash
+  draws or with threefry uniforms passed in (`ops/threefry.batch_uniforms`,
+  the library default). `ops/splat.splat_stream` then sums the stream
+  (`--splat fused`, `fused_i8`, `scatter`, `bucket`, `bucket_exact`).
 - `trace_splat_wide_diff_rng_i8` (`csrc/trace_splat_wide_diff_rng.cu`): the
   forward of the differentiable render, with a per-slot albedo and a 7-bit
   grid set at run time.
@@ -17,8 +23,8 @@ paths. One kernel launch per photon batch:
   albedo cotangents and the batch's <g, lightmap> total.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain version
-(`trace_deposits_rng_plain` with `splat_i8_plain` or `fold_plain`) for CPU
-tensors only.
+(`trace_deposits_rng_plain` or `trace_deposits_wide_plain`, with
+`splat_i8_plain` or `fold_plain`) for CPU tensors only.
 """
 from __future__ import annotations
 
@@ -28,23 +34,28 @@ import numpy as np
 import torch
 
 from ..config import PhotonConfig
-from ..ops import rng
+from ..ops import rng, threefry
 from ..ops.aa_query import MISS, check_on, check_table, nearest_hit
 from ..ops.aa_scene import A_BASE, A_HT, A_WT, F_AA, AARects
 from ..ops.device_scene import Emitters
 from ..ops.sampling import TWO_PI_REF, base_cols
+from ..ops.splat import STREAM_MODES, splat_color_scale, splat_stream
 from ..utils.cuda_build import check_smem, launch
 
 THREADS = 256                      # photons per CUDA block
 WARPS = THREADS // 32
 PLAIN_CHUNK = 16384                # photons per step of the plain version
+LANES = 128                        # the JAX engine's batch quantum
+MAX_SUBLANES = 64                  # the JAX engine's photon-block height
 
 
 def unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to flatmatch_tpu_torch yet; the port runs "
-        f"the default photon render, the fit and the ambient-occlusion and "
-        f"radiosity engines on axis-aligned scenes (see ROADMAP.md)"
+        f"the photon render (in-kernel 7-bit splat with the device RNG, and "
+        f"the deposit-stream splats with either draw source), the fit and "
+        f"the ambient-occlusion and radiosity engines on axis-aligned "
+        f"scenes (see ROADMAP.md)"
     )
 
 
@@ -60,12 +71,6 @@ def check_i8_accumulator(cfg: PhotonConfig, batch_size: int):
         )
 
 
-def splat_color_scale(cfg: PhotonConfig) -> float:
-    """7-bit grid: the brightest emitter channel / 127 bounds every
-    deposit (colors only attenuate, photonmap.cl:236-254)."""
-    return max(*cfg.window_color, *cfg.light_color) / 127.0
-
-
 def emitter_vector(emitters: Emitters, e: int) -> torch.Tensor:
     """[16] f32: pos, wvec, hvec, n, color, is_window flag
     (photon_pallas.emitter_vector)."""
@@ -75,23 +80,47 @@ def emitter_vector(emitters: Emitters, e: int) -> torch.Tensor:
     ]).contiguous()
 
 
-def tail_batch_size(last_valid: int, batch_size: int) -> int:
+def uniforms_per_photon(max_depth: int) -> int:
+    """Draw columns per photon: [dx, dy, dir_u1, dir_u2, (rr, u1, u2) x
+    depth] (engines/photon.py:56)."""
+    return 4 + 3 * int(max_depth)
+
+
+def stream_block(batch_size: int) -> int:
+    """Photons per block of the deposit stream's row order: the JAX wide
+    engine's TB = S * 128 with S = 64 halved until TB divides the batch
+    (photon_pallas_wide.py:1755-1764). Row (b * D + d) * TB + w holds photon
+    b * TB + w at bounce d."""
+    B = int(batch_size)
+    if B < 1 or B % LANES:
+        raise ValueError(f"photons_per_batch must be a positive multiple of "
+                         f"{LANES} for the deposit-stream tier (got {B})")
+    s = MAX_SUBLANES
+    while s > 1 and B % (s * LANES):
+        s //= 2
+    return s * LANES
+
+
+def tail_batch_size(last_valid: int, batch_size: int,
+                    quantum: int = THREADS) -> int:
     """Physical size of an emitter's tail batch: the live photons rounded
-    up to a power-of-two count of blocks, capped at the batch. Draws depend
-    only on (batch seed, photon index), so the dropped photons, which are
-    all dead, change nothing."""
-    blocks = -(-int(last_valid) // THREADS)
+    up to a power-of-two count of `quantum`-photon blocks, capped at the
+    batch. Draws depend only on (batch seed or key, photon index), so the
+    dropped photons, which are all dead, change nothing."""
+    blocks = -(-int(last_valid) // int(quantum))
     p2 = 1
     while p2 < blocks:
         p2 *= 2
-    return min(int(batch_size), p2 * THREADS)
+    return min(int(batch_size), p2 * int(quantum))
 
 
 # --------------------------------------------------------------------------
 # plain PyTorch version
 # --------------------------------------------------------------------------
-def _trace_chunk(fields, group_counts, em, seed, n_valid, cfg, pid,
+def _trace_chunk(fields, group_counts, em, draw, n_valid, cfg, pid,
                  albedo_aa=None):
+    """Trace photons `pid` (in-batch indices); draw(c) returns their draw
+    column c."""
     D = cfg.max_depth
     eps = float(np.float32(cfg.self_intersect_eps))
     two_pi = float(np.float32(TWO_PI_REF))
@@ -100,9 +129,6 @@ def _trace_chunk(fields, group_counts, em, seed, n_valid, cfg, pid,
     tint_z = float(np.float32(cfg.floor_tint_z_threshold))
     tint = [float(np.float32(t)) for t in cfg.floor_tint]
     albedo = float(np.float32(cfg.albedo))
-
-    def draw(c):
-        return rng.draw(pid, seed, c)
 
     epx, epy, epz, ewx, ewy, ewz, ehx, ehy, ehz, enx, eny, enz = (
         em[i] for i in range(12)
@@ -205,17 +231,51 @@ def trace_deposits_rng_plain(
     photons as photon_pallas_wide.trace_deposits_wide_rng. With `albedo_aa`
     [N] a diffuse hit on slot j multiplies by albedo_aa[j] instead of
     cfg.albedo, as the diff kernels do."""
+    return _trace_plain(fields, group_counts, em_vec, n_valid, batch_size,
+                        cfg, lambda pid: lambda c: rng.draw(pid, int(seed), c),
+                        albedo_aa)
+
+
+def _trace_plain(fields, group_counts, em_vec, n_valid, batch_size, cfg,
+                 draws, albedo_aa=None):
+    """The plain trace of a batch in chunks of PLAIN_CHUNK photons;
+    draws(pid) gives the draw function of photons pid."""
     dev = fields.device
     idx, col, ridx = [], [], []
     for c0 in range(0, int(batch_size), PLAIN_CHUNK):
         pid = torch.arange(c0, min(c0 + PLAIN_CHUNK, int(batch_size)),
                            dtype=torch.int64, device=dev)
-        i, c, r = _trace_chunk(fields, group_counts, em_vec, int(seed),
+        i, c, r = _trace_chunk(fields, group_counts, em_vec, draws(pid),
                                int(n_valid), cfg, pid, albedo_aa)
         idx.append(i)
         col.append(c)
         ridx.append(r)
     return torch.cat(idx), torch.cat(col), torch.cat(ridx)
+
+
+def stream_rows(idx: torch.Tensor, col: torch.Tensor, block: int):
+    """Photon-major deposits (idx [B, D], col [B, D, 3]) -> the stream
+    (idx [B * D], col [B * D, 3]) in the JAX row order of `stream_block`."""
+    B, D = idx.shape
+    nb = B // int(block)
+    return (idx.reshape(nb, block, D).permute(0, 2, 1).reshape(-1)
+            .contiguous(),
+            col.reshape(nb, block, D, 3).permute(0, 2, 1, 3).reshape(-1, 3)
+            .contiguous())
+
+
+def trace_deposits_wide_plain(
+    fields: torch.Tensor, group_counts, em_vec: torch.Tensor,
+    uniforms: torch.Tensor, n_valid: int, cfg: PhotonConfig,
+    block: int = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `trace_deposits_wide`: the stream of one batch whose
+    photon p draws its column c from uniforms[p, c] ([B, U] f32)."""
+    B = uniforms.shape[0]
+    idx, col, _ = _trace_plain(
+        fields, group_counts, em_vec, n_valid, B, cfg,
+        lambda pid: lambda c: uniforms[pid, c])
+    return stream_rows(idx, col, block or stream_block(B))
 
 
 def splat_i8_plain(idx: torch.Tensor, col: torch.Tensor, num_texels: int,
@@ -447,6 +507,92 @@ def trace_fold_wide_rng(
 trace_fold_wide_rng.launches = 0
 
 
+def _stream_block_of(batch_size: int, block) -> int:
+    block = stream_block(batch_size) if block is None else int(block)
+    if block < 1 or int(batch_size) % block:
+        raise ValueError(f"stream block {block} must divide the batch "
+                         f"{batch_size}")
+    return block
+
+
+def _launch_stream(entry, fields, group_counts, em_vec, extra, n_valid,
+                   batch_size, cfg, block, seed=0):
+    """Allocate the stream of one batch and launch `entry` on it; `extra`
+    are the pointers between the emitter vector and the stream."""
+    n = fields.shape[1]
+    check_smem(entry, 4 * F_AA * n, n)
+    R = int(batch_size) * int(cfg.max_depth)
+    dev = fields.device
+    idx = torch.empty((R,), dtype=torch.int32, device=dev)
+    col = torch.empty((R, 3), dtype=torch.float32, device=dev)
+    launch(entry, dev, fields.data_ptr(), em_vec.data_ptr(), *extra,
+           idx.data_ptr(), col.data_ptr(), int(batch_size), block,
+           *_trace_args(fields, group_counts, seed, n_valid, cfg, 0))
+    return idx, col
+
+
+def trace_deposits_wide_rng(
+    fields: torch.Tensor, group_counts, em_vec: torch.Tensor, seed: int,
+    n_valid: int, batch_size: int, cfg: PhotonConfig, block: int = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Trace one batch with the counter-hash draws and return its deposit
+    stream: (idx [R] int32, col [R, 3] f32), R = batch_size * max_depth, in
+    the JAX row order with `block` photons per stream block (default
+    `stream_block(batch_size)`). Dead photons and misses give id 0 and
+    color 0.
+
+    CUDA tensors launch `csrc/trace_deposits_wide.cu` (the port of
+    photon_pallas_wide.trace_deposits_wide_rng); a failed build or launch
+    raises. CPU tensors run the plain version."""
+    _check_batch(fields, group_counts, em_vec, n_valid, batch_size)
+    block = _stream_block_of(batch_size, block)
+    if fields.device.type == "cpu":
+        idx, col, _ = trace_deposits_rng_plain(
+            fields, group_counts, em_vec, seed, n_valid, batch_size, cfg)
+        return stream_rows(idx, col, block)
+    out = _launch_stream("fm_trace_deposits_wide_rng", fields, group_counts,
+                         em_vec, (), n_valid, batch_size, cfg, block, seed)
+    trace_deposits_wide_rng.launches += 1
+    return out
+
+
+trace_deposits_wide_rng.launches = 0
+
+
+def trace_deposits_wide(
+    fields: torch.Tensor, group_counts, em_vec: torch.Tensor,
+    uniforms: torch.Tensor, n_valid: int, cfg: PhotonConfig,
+    block: int = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`trace_deposits_wide_rng` with the draws passed in: photon p draws
+    column c from uniforms[p, c] ([B, U] f32, U = 4 + 3 * max_depth; the
+    threefry draws of `ops.threefry.batch_uniforms`).
+
+    CUDA tensors launch `csrc/trace_deposits_wide.cu` (the port of
+    photon_pallas_wide.trace_deposits_wide) on a transposed [U, B] copy of
+    the uniforms; a failed build or launch raises. CPU tensors run the
+    plain version."""
+    U = uniforms_per_photon(cfg.max_depth)
+    if uniforms.dim() != 2 or uniforms.shape[1] != U:
+        raise ValueError(f"uniforms must be [B, {U}], got "
+                         f"{tuple(uniforms.shape)}")
+    B = uniforms.shape[0]
+    _check_batch(fields, group_counts, em_vec, n_valid, B,
+                 uniforms=uniforms)
+    block = _stream_block_of(B, block)
+    if fields.device.type == "cpu":
+        return trace_deposits_wide_plain(fields, group_counts, em_vec,
+                                         uniforms, n_valid, cfg, block)
+    u_t = uniforms.t().contiguous()
+    out = _launch_stream("fm_trace_deposits_wide", fields, group_counts,
+                         em_vec, (u_t.data_ptr(),), n_valid, B, cfg, block)
+    trace_deposits_wide.launches += 1
+    return out
+
+
+trace_deposits_wide.launches = 0
+
+
 # --------------------------------------------------------------------------
 # host side
 # --------------------------------------------------------------------------
@@ -504,10 +650,12 @@ def emitter_schedule(counts, batch_size: int) -> List[tuple]:
     return schedule
 
 
-def schedule_batches(schedule, batch_size: int, tail_shrink: bool = True):
+def schedule_batches(schedule, batch_size: int, tail_shrink: bool = True,
+                     quantum: int = THREADS):
     """(emitter, global batch index, live photons, physical batch size) of
     every batch of the schedule in dispatch order; each emitter's tail
-    batch runs at `tail_batch_size` unless `tail_shrink` is off."""
+    batch runs at `tail_batch_size` (in blocks of `quantum` photons) unless
+    `tail_shrink` is off."""
     B = int(batch_size)
     for e, base_batch, n_batches, last_valid in schedule:
         for i in range(n_batches):
@@ -515,40 +663,72 @@ def schedule_batches(schedule, batch_size: int, tail_shrink: bool = True):
                 yield e, base_batch + i, B, B
             else:
                 yield (e, base_batch + i, last_valid,
-                       tail_batch_size(last_valid, B) if tail_shrink else B)
+                       tail_batch_size(last_valid, B, quantum)
+                       if tail_shrink else B)
 
 
 def render_all_wide(fields, group_counts, emitters: Emitters,
                     cfg: PhotonConfig, batch_size: int, schedule,
                     num_texels: int) -> torch.Tensor:
-    """The whole emitter schedule: one kernel launch per batch, each batch's
-    int32 accumulator de-scaled into the f32 lightmap in batch order
-    (photon_pallas_wide._render_all_wide). The tail batch of each emitter
-    runs at `tail_batch_size`."""
+    """The whole emitter schedule, one batch after another into the f32
+    lightmap (photon_pallas_wide._render_all_wide). `inkernel_i8`: one
+    launch per batch, its int32 accumulator de-scaled. The stream tiers:
+    the stream trace (counter hash, or threefry uniforms without the device
+    RNG), then `splat_stream`. Each emitter's tail batch runs at
+    `tail_batch_size`, on the stream tiers in whole stream blocks, so its
+    stream is the first rows of the full batch's."""
     dev = fields.device
     lm = torch.zeros((num_texels, 3), dtype=torch.float32, device=dev)
-    acc = torch.empty((num_texels, 3), dtype=torch.int32, device=dev)
-    scale = float(np.float32(splat_color_scale(cfg)))
     evs = {}
-    for e, gb, nv, bsz in schedule_batches(schedule, batch_size):
+
+    def ev(e):
         if e not in evs:
             evs[e] = emitter_vector(emitters, e)
-        trace_splat_wide_rng_i8(fields, group_counts, evs[e],
-                                rng.batch_seed(cfg.seed, gb), nv, bsz, cfg,
-                                num_texels, out=acc)
-        lm += acc.to(torch.float32) * scale
+        return evs[e]
+
+    if cfg.splat == "inkernel_i8":
+        acc = torch.empty((num_texels, 3), dtype=torch.int32, device=dev)
+        scale = float(np.float32(splat_color_scale(cfg)))
+        for e, gb, nv, bsz in schedule_batches(schedule, batch_size):
+            trace_splat_wide_rng_i8(fields, group_counts, ev(e),
+                                    rng.batch_seed(cfg.seed, gb), nv, bsz,
+                                    cfg, num_texels, out=acc)
+            lm += acc.to(torch.float32) * scale
+        return lm
+    block = stream_block(batch_size)
+    U = uniforms_per_photon(cfg.max_depth)
+    for e, gb, nv, bsz in schedule_batches(schedule, batch_size,
+                                           quantum=block):
+        if cfg.device_rng:
+            idx, col = trace_deposits_wide_rng(
+                fields, group_counts, ev(e), rng.batch_seed(cfg.seed, gb),
+                nv, bsz, cfg, block)
+        else:
+            u = threefry.batch_uniforms(cfg.seed, gb, bsz, U, dev)
+            idx, col = trace_deposits_wide(fields, group_counts, ev(e), u,
+                                           nv, cfg, block)
+        splat_stream(lm, idx, col, cfg)
     return lm
 
 
 def check_port_cfg(cfg: PhotonConfig):
-    """Refuse the photon configurations the port does not run."""
-    if cfg.splat != "inkernel_i8":
-        raise unsupported(f"splat={cfg.splat!r}")
-    if not cfg.device_rng:
-        raise unsupported("the threefry draws (device_rng=False)")
+    """Refuse the photon configurations the port does not run: the
+    in-kernel bf16 splat, and the in-kernel 7-bit splat with the threefry
+    draws. The stream tiers need a batch that is a multiple of 128, as the
+    JAX wide engine does (photon_pallas_wide.py:1755)."""
     if int(cfg.photons_per_batch) < 1:
         raise ValueError(f"photons_per_batch must be >= 1, got "
                          f"{cfg.photons_per_batch}")
+    if cfg.splat == "inkernel":
+        raise unsupported("splat='inkernel' (the in-kernel bf16 splat)")
+    if cfg.splat == "inkernel_i8":
+        if not cfg.device_rng:
+            raise unsupported("splat='inkernel_i8' with the threefry draws "
+                              "(device_rng=False)")
+        return
+    if cfg.splat not in STREAM_MODES:
+        raise ValueError(f"unknown splat mode {cfg.splat!r}")
+    stream_block(cfg.photons_per_batch)
 
 
 def render_photons(emitters: Emitters, num_texels: int, cfg: PhotonConfig,
@@ -557,7 +737,8 @@ def render_photons(emitters: Emitters, num_texels: int, cfg: PhotonConfig,
     on the scene table's device (photon_pallas_wide.render_photons)."""
     check_port_cfg(cfg)
     B = int(cfg.photons_per_batch)
-    check_i8_accumulator(cfg, B)
+    if cfg.splat in ("inkernel_i8", "fused_i8"):
+        check_i8_accumulator(cfg, B)
     aa_c, total_c, expand = compact_aa(aa, num_texels)
     schedule = emitter_schedule(emitters.counts, B)
     compact_lm = render_all_wide(aa_c.fields, aa_c.group_counts, emitters,

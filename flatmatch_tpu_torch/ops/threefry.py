@@ -2,8 +2,11 @@
 
 The radiosity form-factor pass samples its rays with
 `jax.random.uniform(fold_in(fold_in(PRNGKey(seed), wall), chunk), shape)`
-(flatmatch_tpu/engines/radiosity.py:89, :206). This module reproduces those
-draws exactly, so the port fires the same rays as the JAX package:
+(flatmatch_tpu/engines/radiosity.py:89, :206), and the photon engines
+without the device RNG draw each batch's uniforms with
+`uniform(fold_in(PRNGKey(seed), batch), (B, U))` (`batch_uniforms`). This
+module reproduces those draws exactly, so the port fires the same rays and
+photons as the JAX package:
 
 - `prng_key(seed)`: the raw key [seed >> 32, seed & 0xffffffff]
   (jax/_src/prng.py threefry_seed);
@@ -78,3 +81,15 @@ def uniform(key: Key, shape, device="cpu") -> torch.Tensor:
     b0, b1 = threefry2x32(key, idx >> 32, idx & MASK32)
     bits = b0 ^ b1
     return ((bits >> 9).to(torch.float32) * _MANTISSA_ULP).reshape(shape)
+
+
+def batch_uniforms(seed: int, batch_index: int, batch_size: int, U: int,
+                   device="cpu") -> torch.Tensor:
+    """The [batch_size, U] uniforms of photon batch `batch_index` (the
+    global batch index) of a run with `seed`:
+    uniform(fold_in(prng_key(seed), batch_index), (batch_size, U)), the
+    keying of the JAX photon engines (engines/photon.py:183-184,
+    engines/photon_pallas_wide.py:1692-1693). Row p depends only on the key
+    and p, so a batch cut to its first rows draws those rows unchanged."""
+    key = fold_in(prng_key(seed), batch_index)
+    return uniform(key, (int(batch_size), int(U)), device)

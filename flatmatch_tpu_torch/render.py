@@ -3,8 +3,8 @@ compile -> geometry JSON -> illumination engine -> per-wall lightmap tiles
 (main.c:17-101).
 
 Counterpart of flatmatch_tpu/render.py for three engines on axis-aligned
-scenes: the default photon render (then exposure normalization), ambient
-occlusion (fused by default, chunked with cfg.ao.fused off) and radiosity.
+scenes: the photon render (then exposure normalization), ambient occlusion
+(fused by default, chunked with cfg.ao.fused off) and radiosity.
 Every function that touches tensors takes an explicit `device`.
 """
 from __future__ import annotations
@@ -99,8 +99,11 @@ def downsample_supersampled(
 def run_engine(scene: geometry.Scene, cfg: RenderConfig,
                device="cuda") -> np.ndarray:
     """Run `cfg.engine` on `device` and return the [num_texels, 3] arena
-    (main.c:60-79). Ported engines: photon_pallas at the device RNG and
-    in-kernel 7-bit splat (with the exposure normalization),
+    (main.c:60-79). Ported engines: photon_pallas (then the exposure
+    normalization) with splat `inkernel_i8` at the device RNG, or with the
+    deposit-stream splats `fused` (the library default), `fused_i8`,
+    `scatter`, `bucket` and `bucket_exact` at either draw source (the
+    device RNG, or the threefry draws, the library default);
     ambient_occlusion and radiosity."""
     from .engines import photon_wide
     from .ops.aa_scene import pack_aa

@@ -42,6 +42,10 @@ ENTRY_POINTS = {
     "fm_aa_nearest": [_P] * 5 + [_I] * 5 + [_P],
     "fm_nearest_distances": [_P] * 4 + [_I] * 5 + [_F] + [_P],
     "fm_ao_fused": [_P] * 6 + [_I] * 6 + [_F] + [_P],
+    "fm_trace_deposits_wide_rng": [_P] * 4 + [_I] * 10 + [_F] * 9 + [_P],
+    "fm_trace_deposits_wide": [_P] * 5 + [_I] * 10 + [_F] * 9 + [_P],
+    "fm_fused_splat_i8": [_P] * 4 + [_I] * 2 + [_F] * 2 + [_P],
+    "fm_fused_splat": [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P],
 }
 SMEM_LIMIT = 232448   # dynamic shared memory of a block on sm_90
 

@@ -377,3 +377,214 @@ def test_nearest_hit_wrappers_refuse_bad_inputs(dev):
         ao.ao_fused(f, gc, c, w, d, fac.cpu())
     with pytest.raises(ValueError):               # centers [T, 2]
         ao.ao_fused(f, gc, c[:, :2], w, d, fac)
+
+
+# --------------------------------------------------------------------------
+# the deposit-stream tier: two stream traces and two splats
+# --------------------------------------------------------------------------
+def _stream_cfg(max_depth=8):
+    return dataclasses.replace(CFG.photon, device_rng=False, splat="fused",
+                               max_depth=max_depth)
+
+
+def _stream_inputs(name, dev, batch):
+    from flatmatch_tpu_torch.ops import threefry
+
+    aa_c, total_c, ev = _inputs(name, dev)
+    u = threefry.batch_uniforms(3, 11, batch, pw.uniforms_per_photon(8), dev)
+    return aa_c, total_c, ev, u
+
+
+def _traces(aa_c, ev, u, n_valid, batch, block=None):
+    """Both stream traces of one batch: (name, wrapper call, the plain
+    version on the same device)."""
+    cfg = _stream_cfg()
+    seed = rng.batch_seed(CFG.photon.seed, 5)
+    f, gc = aa_c.fields, aa_c.group_counts
+    blk = block or pw.stream_block(batch)
+    return [
+        ("trace_deposits_wide_rng",
+         lambda: pw.trace_deposits_wide_rng(f, gc, ev, seed, n_valid, batch,
+                                            cfg, block),
+         lambda: pw.stream_rows(*pw.trace_deposits_rng_plain(
+             f, gc, ev, seed, n_valid, batch, cfg)[:2], blk)),
+        ("trace_deposits_wide",
+         lambda: pw.trace_deposits_wide(f, gc, ev, u, n_valid, cfg, block),
+         lambda: pw.trace_deposits_wide_plain(f, gc, ev, u, n_valid, cfg,
+                                              blk)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n_valid,batch,block", [
+    ("tiny", 1000, 1024, 512),
+    ("mini", 131072, 131072, None),
+    ("mini", 4097, 8192, None),   # a tail batch: dead photons write zeros
+])
+def test_stream_traces_match_plain(dev, name, n_valid, batch, block):
+    """-fmad=false and the plain version's op order: every id and color
+    of the stream equal to the plain version on the card, rows in the JAX
+    order, and two runs identical."""
+    aa_c, _, ev, u = _stream_inputs(name, dev, batch)
+    for kernel, run, plain in _traces(aa_c, ev, u, n_valid, batch, block):
+        wrapper = getattr(pw, kernel)
+        before = wrapper.launches
+        idx, col = run()
+        idx2, col2 = run()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2
+        assert torch.equal(idx, idx2) and torch.equal(col, col2)
+        pidx, pcol = plain()
+        assert idx.shape == (batch * 8,) and col.shape == (batch * 8, 3)
+        assert pcol.sum().item() > 0
+        assert torch.equal(idx, pidx), kernel
+        assert torch.equal(col, pcol), kernel
+
+
+@pytest.mark.cuda
+def test_stream_traces_on_cpu_tensors_run_the_plain_version(dev):
+    from flatmatch_tpu_torch.ops.aa_scene import AARects
+
+    aa_c, _, ev, u = _stream_inputs("tiny", dev, 1024)
+    cpu = AARects(fields=aa_c.fields.cpu(), group_counts=aa_c.group_counts,
+                  perm=aa_c.perm)
+    for kernel, run, plain in _traces(cpu, ev.cpu(), u.cpu(), 1000, 1024,
+                                      512):
+        wrapper = getattr(pw, kernel)
+        before = wrapper.launches
+        idx, col = run()
+        assert wrapper.launches == before
+        pidx, pcol = plain()
+        assert idx.device.type == "cpu" and pcol.sum().item() > 0
+        assert torch.equal(idx, pidx) and torch.equal(col, pcol)
+
+
+def _stream_of(name, dev, batch=1024):
+    aa_c, total_c, ev, u = _stream_inputs(name, dev, batch)
+    idx, col = pw.trace_deposits_wide(aa_c.fields, aa_c.group_counts, ev, u,
+                                      batch - 24, _stream_cfg())
+    return idx, col, total_c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,batch", [("tiny", 1024), ("mini", 131072)])
+def test_stream_splats_match_plain(dev, name, batch):
+    """fused_splat_i8 exactly; fused_splat (bf16 colors) and its f32 mode
+    within rtol 1e-5 of index_add_'s f32 order; two runs identical."""
+    from flatmatch_tpu_torch.ops import splat as sp
+
+    idx, col, T = _stream_of(name, dev, batch)
+    cfg = _stream_cfg()
+    bound = sp.stream_bound(dataclasses.replace(cfg,
+                                                photons_per_batch=batch))
+    cases = [
+        (sp.fused_splat_i8, (sp.splat_color_scale(cfg),),
+         lambda: sp.fused_splat_i8_plain(idx.cpu(), col.cpu(), T,
+                                         sp.splat_color_scale(cfg))),
+        (sp.fused_splat, (bound,),
+         lambda: sp.fused_splat_plain(idx.cpu(), col.cpu(), T)),
+        (sp.scatter_splat, (bound,),
+         lambda: sp.scatter_plain(idx.cpu(), col.cpu(), T)),
+    ]
+    for fn, args, plain in cases:
+        counter = sp.fused_splat_i8 if fn is sp.fused_splat_i8 \
+            else sp.fused_splat
+        before = counter.launches
+        a, b = fn(idx, col, T, *args), fn(idx, col, T, *args)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 2
+        assert torch.equal(a, b)
+        want = plain()
+        assert want.sum().item() > 0
+        if fn is sp.fused_splat_i8:
+            assert torch.equal(a.cpu(), want)
+        else:
+            np.testing.assert_allclose(a.cpu().numpy(), want.numpy(),
+                                       rtol=1e-5, atol=1e-6)
+        # a CPU stream takes the plain version and launches nothing
+        got = fn(idx.cpu(), col.cpu(), T, *args)
+        assert counter.launches == before + 2
+        assert got.device.type == "cpu" and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_stream_wrappers_refuse_bad_inputs(dev):
+    from flatmatch_tpu_torch.ops import splat as sp
+
+    aa_c, total_c, ev, u = _stream_inputs("tiny", dev, 256)
+    f, gc, cfg = aa_c.fields, aa_c.group_counts, _stream_cfg()
+    with pytest.raises(ValueError):             # emitter vector on the CPU
+        pw.trace_deposits_wide_rng(f, gc, ev.cpu(), 0, 8, 256, cfg)
+    with pytest.raises(ValueError):             # uniforms on the CPU
+        pw.trace_deposits_wide(f, gc, ev, u.cpu(), 8, cfg)
+    with pytest.raises(ValueError):             # float64 uniforms
+        pw.trace_deposits_wide(f, gc, ev, u.double(), 8, cfg)
+    with pytest.raises(ValueError):             # [U, B], not contiguous
+        pw.trace_deposits_wide(f, gc, ev, u.t().contiguous().t(), 8, cfg)
+    with pytest.raises(ValueError):             # U of another depth
+        pw.trace_deposits_wide(f, gc, ev, u, 8, _stream_cfg(max_depth=6))
+    with pytest.raises(ValueError):             # block does not divide
+        pw.trace_deposits_wide_rng(f, gc, ev, 0, 8, 256, cfg, block=96)
+    idx = torch.zeros(16, dtype=torch.int32, device=dev)
+    col = torch.zeros((16, 3), device=dev)
+    for bad in ((idx.cpu(), col), (idx.long(), col), (idx, col.double()),
+                (idx[:15], col), (idx, col.t().contiguous().t())):
+        with pytest.raises(ValueError):
+            sp.fused_splat(*bad, total_c, 100.0)
+        with pytest.raises(ValueError):
+            sp.fused_splat_i8(*bad, total_c, 0.1)
+
+
+class _FailingLibrary:
+    """Stands in for the kernel library: every entry point returns CUDA
+    error 9 (cudaErrorInvalidConfiguration) without launching."""
+
+    def __getattr__(self, name):
+        return lambda *args: 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["trace_deposits_wide_rng",
+                                    "trace_deposits_wide", "fused_splat_i8",
+                                    "fused_splat"])
+def test_stream_wrappers_raise_on_a_failed_launch(dev, kernel, monkeypatch):
+    """A CUDA error from the entry point raises; nothing falls back to the
+    plain version and no launch is counted."""
+    from flatmatch_tpu_torch.ops import splat as sp
+    from flatmatch_tpu_torch.utils import cuda_build
+
+    aa_c, total_c, ev, u = _stream_inputs("tiny", dev, 256)
+    f, gc, cfg = aa_c.fields, aa_c.group_counts, _stream_cfg()
+    idx = torch.zeros(16, dtype=torch.int32, device=dev)
+    col = torch.ones((16, 3), device=dev)
+    calls = {
+        "trace_deposits_wide_rng": (pw, lambda: pw.trace_deposits_wide_rng(
+            f, gc, ev, 0, 256, 256, cfg)),
+        "trace_deposits_wide": (pw, lambda: pw.trace_deposits_wide(
+            f, gc, ev, u, 256, cfg)),
+        "fused_splat_i8": (sp, lambda: sp.fused_splat_i8(idx, col, total_c,
+                                                         0.1)),
+        "fused_splat": (sp, lambda: sp.fused_splat(idx, col, total_c,
+                                                   100.0)),
+    }
+    mod, call = calls[kernel]
+    cuda_build.load_library()
+    monkeypatch.setattr(cuda_build, "_lib", _FailingLibrary())
+    before = getattr(mod, kernel).launches
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        call()
+    assert getattr(mod, kernel).launches == before
+
+
+@pytest.mark.cuda
+def test_stream_trace_launch_refused_for_its_shared_memory(dev, monkeypatch):
+    """A scene table past a block's shared memory: with the wrapper's own
+    check out of the way, the CUDA attribute call refuses the launch and
+    the wrapper raises."""
+    n = 5000                                    # 13 * 4 * 5000 > 232448
+    f = torch.zeros((13, n), device=dev)
+    ev = torch.zeros(16, device=dev)
+    monkeypatch.setattr(pw, "check_smem", lambda *a: None)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        pw.trace_deposits_wide_rng(f, (n, 0, 0), ev, 0, 256, 256,
+                                   _stream_cfg())

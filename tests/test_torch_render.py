@@ -7,8 +7,8 @@ compared with the JAX package's wide engine in Pallas interpret mode times
 exposure_scale. Tolerance: total energy within 1e-3 and >= 99% of texels
 within rtol 1e-5; the draws and integer sums are exact, and only a
 last-ulp sin/cos/rsqrt difference between XLA and torch can split a path.
-The CLI is checked for its artifacts and for refusing what the slice does
-not run.
+The CLI is checked for its artifacts and for refusing what the port does
+not run (tests/test_torch_stream.py checks the stream tiers it runs).
 """
 import dataclasses
 
@@ -97,8 +97,8 @@ def test_supersample_render(tmp_path):
     ["--engine", "photon_oracle"],
     ["--splat", "inkernel"],
     ["--no-device-rng"],
-    ["--splat", "fused"],
-    ["--splat", "scatter"],
+    ["--splat", "inkernel", "--no-device-rng"],
+    ["--no-device-rng", "--splat", "inkernel_i8"],
     ["--checkpoint", "ck.npz"],
     ["--preview"],
     ["--coordinator", "localhost:1234"],
@@ -116,7 +116,7 @@ def test_cli_refuses_what_the_slice_does_not_run(flags, tmp_path, capsys):
 @pytest.mark.parametrize("change", [
     dict(engine=Engine.PHOTON_ORACLE),
     dict(photon=dict(device_rng=False)),
-    dict(photon=dict(splat="fused_i8")),
+    dict(photon=dict(splat="inkernel")),
 ])
 def test_library_refuses_what_the_slice_does_not_run(change):
     cfg = _cfg(DEFAULT_CONFIG)
