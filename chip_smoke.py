@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from flatmatch_tpu_torch/csrc and drives the port's
-four paths on the card:
+five paths on the card:
 - the render: the production kernel against its plain PyTorch version,
   `tests/fixtures/mini.png` through the port's CLI at its defaults, the
   physics against the reference C engine's golden lightmap, and a 4x4
@@ -26,7 +26,14 @@ four paths on the card:
   mini, the physics of four splat and draw routes against the reference C
   engine, `render mini.png 30 --splat fused` with and without
   `--device-rng` (and `--splat fused_i8`) through the CLI, and the 4x4
-  tiling with `--splat fused` (phases 18-21).
+  tiling with `--splat fused` (phases 18-21);
+- the other in-kernel tiers: the counter-hash and threefry traces with the
+  f32 splat (bf16 colors summed in int64 fixed point) and the threefry trace
+  with the 7-bit splat, and the diff forward's f32 tier, against their plain
+  versions on one batch of mini, each f32 kernel against the deposit-stream
+  route bit for bit, the physics of `--splat inkernel`, `--no-device-rng`
+  and both, those three routes and `fit --splat inkernel` on mini through
+  the CLI, and the 4x4 tiling with `--splat inkernel` (phases 22-25).
 Any failure exits non-zero. The line before the card's name lists every
 kernel with its launches on its path, its error against its plain version,
 its time, the plain version's time and its bound. The last line of standard
@@ -66,7 +73,22 @@ KERNEL_SITES = {
                        "flatmatch_tpu/ops/splat_pallas.py:145"),
     "fused_splat": ("ops.splat", "splat_stream",
                     "flatmatch_tpu/ops/splat_pallas.py:219"),
+    "trace_splat_wide_rng_f32": ("engines.photon_wide", "trace_splat_wide",
+                                 f"{TPU_WIDE}:1002"),
+    "trace_splat_wide_i8": ("engines.photon_wide", "trace_splat_wide",
+                            f"{TPU_WIDE}:937"),
+    "trace_splat_wide_f32": ("engines.photon_wide", "trace_splat_wide",
+                             f"{TPU_WIDE}:937"),
+    "trace_splat_wide_diff_rng_f32": ("engines.photon_wide",
+                                      "trace_splat_wide_diff_rng",
+                                      f"{TPU_WIDE}:1252"),
 }
+# the in-kernel kernels of phases 22-25 that read threefry uniforms, and
+# those that sum in int64 fixed point
+UNIFORM_KERNELS = ("trace_deposits_wide", "trace_splat_wide_i8",
+                   "trace_splat_wide_f32")
+F32_KERNELS = ("trace_splat_wide_rng_f32", "trace_splat_wide_f32",
+               "trace_splat_wide_diff_rng_f32")
 KERNELS = {
     name: dict(name=name, route="cuda",
                source=f"flatmatch_tpu_torch/csrc/{src}.cu", replaces=tpu)
@@ -152,9 +174,10 @@ def trace_bound(s, bounces, photons, kernel, depth=8):
     """Bound of one launch of `kernel` on this run's batch: `bounces`
     traced bounces over all N rects each. Bytes read: the scene table, the
     emitter vector, the albedo row (diff kernels), g (the fold) and the
-    uniforms (4 * (4 + 3 * depth) per photon, trace_deposits_wide); written:
-    the int32 accumulator (the fold: N + 1 sums; the stream traces: the
-    stream, 16 bytes per photon and bounce)."""
+    uniforms (4 * (4 + 3 * depth) per photon, UNIFORM_KERNELS); written:
+    the int32 accumulator (12 bytes a texel; the f32 kernels: the int64
+    one, 24 bytes a texel, and the f32 increment, 12; the fold: N + 1 sums;
+    the stream traces: the stream, 16 bytes per photon and bounce)."""
     n = s["aa_c"].fields.shape[1]
     T = s["total_c"]
     fold = kernel == "trace_fold_wide_rng"
@@ -162,13 +185,15 @@ def trace_bound(s, bounces, photons, kernel, depth=8):
         FOLD_OPS_PER_BOUNCE if fold else 0)
     ops = bounces * per_bounce + photons * OPS_PER_PHOTON
     nbytes = 4 * (13 * n + 16)
+    if kernel in UNIFORM_KERNELS:
+        nbytes += 4 * (4 + 3 * depth) * photons
     if kernel.startswith("trace_deposits"):
         nbytes += 16 * photons * depth
-        if kernel == "trace_deposits_wide":
-            nbytes += 4 * (4 + 3 * depth) * photons
+    elif kernel in F32_KERNELS:
+        nbytes += (24 + 12) * T
     else:
         nbytes += 12 * T
-    if kernel in ("trace_splat_wide_diff_rng_i8", "trace_fold_wide_rng"):
+    if kernel.startswith(("trace_splat_wide_diff_rng", "trace_fold")):
         nbytes += 4 * n
     if fold:
         nbytes += 4 * (n + 1)
@@ -1066,6 +1091,262 @@ def stream_phases(dev, results, cfg, s, s5, s6):
         splat_ms_per_batch=k21["fused_splat"]["ms"], kernels=k21)
 
 
+# --------------------------------------------------------------------------
+# the other in-kernel tiers (phases 22-25)
+# --------------------------------------------------------------------------
+def inkernel_runs(s, cfg, dev, power):
+    """The four in-kernel kernels of batch 0 of `s` (diff inputs at
+    `power`): (the batch's threefry uniforms, name -> (kernel call, its
+    plain version on the card))."""
+    import torch
+
+    from flatmatch_tpu_torch.diff.render import fixed_pair
+    from flatmatch_tpu_torch.engines import photon_wide as pw
+    from flatmatch_tpu_torch.ops import threefry
+
+    ph = cfg.photon
+    B = ph.photons_per_batch
+    f, gc, ev = s["aa_c"].fields, s["aa_c"].group_counts, s["ev"]
+    T, seed = s["total_c"], s["seed"]
+    u = threefry.batch_uniforms(ph.seed, 0, B,
+                                pw.uniforms_per_photon(ph.max_depth), dev)
+    d = diff_setup(s, cfg, dev, power)
+    fixed = fixed_pair(ph, torch.tensor([power], device=dev), d["alb"], B)
+    return u, {
+        "trace_splat_wide_rng_f32": (
+            lambda: pw.trace_splat_wide_rng_f32(f, gc, ev, seed, B, B, ph, T),
+            lambda: pw.trace_splat_wide_rng_f32_plain(f, gc, ev, seed, B, B,
+                                                      ph, T)),
+        "trace_splat_wide_i8": (
+            lambda: pw.trace_splat_wide_i8(f, gc, ev, u, B, ph, T),
+            lambda: pw.trace_splat_wide_plain(f, gc, ev, u, B, ph, T, True)),
+        "trace_splat_wide_f32": (
+            lambda: pw.trace_splat_wide_f32(f, gc, ev, u, B, ph, T),
+            lambda: pw.trace_splat_wide_plain(f, gc, ev, u, B, ph, T,
+                                              False)),
+        "trace_splat_wide_diff_rng_f32": (
+            lambda: pw.trace_splat_wide_diff_rng_f32(
+                f, gc, d["alb"], d["ev"], seed, B, B, ph, T, fixed),
+            lambda: pw.trace_splat_wide_rng_f32_plain(
+                f, gc, d["ev"], seed, B, B, ph, T, d["alb"])),
+    }
+
+
+def inkernel_bounces(s, cfg, u):
+    """Traced bounces of batch 0 of `s`: (counter hash, threefry)."""
+    from flatmatch_tpu_torch.engines import photon_wide as pw
+
+    ph = cfg.photon
+    B, D = ph.photons_per_batch, ph.max_depth
+    block = pw.stream_block(B)
+    _, col = pw.trace_deposits_wide_plain(s["aa_c"].fields,
+                                          s["aa_c"].group_counts, s["ev"], u,
+                                          B, ph, block)
+    return traced_bounces(s, cfg, B), stream_bounces(col, B, D, block)
+
+
+def inkernel_phases(dev, results, cfg, s, s5, s6):
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from flatmatch_tpu_torch import cli
+    from flatmatch_tpu_torch.diff.render import make_diff_renderer_wide
+    from flatmatch_tpu_torch.engines import photon_wide as pw
+    from flatmatch_tpu_torch.ops import splat as sp
+    from flatmatch_tpu_torch.ops.aa_scene import pack_aa
+    from flatmatch_tpu_torch.render import run_engine
+
+    mini = FIXTURES / "mini.png"
+
+    def route(base, device_rng, splat):
+        return base.replace(photon=dc.replace(
+            base.photon, device_rng=device_rng, splat=splat))
+
+    ph = cfg.photon
+    B, D = ph.photons_per_batch, ph.max_depth
+    scale = float(np.float32(sp.splat_color_scale(ph)))
+
+    # 22. the four kernels against their plain versions on mini ------------
+    u, runs = inkernel_runs(s, cfg, dev, power=1.7)
+    hashed, drawn = inkernel_bounces(s, cfg, u)
+    k22 = {}
+    for name, (run, plain) in runs.items():
+        a, b = run(), run()
+        want = plain()
+        sync()
+        check(torch.equal(a, b), f"{name}: two runs differ")
+        check(want.sum().item() > 0, f"{name}: plain version is empty")
+        if name == "trace_splat_wide_i8":
+            check(torch.equal(a, want), f"{name}: differs from its plain "
+                  f"version on {int((a != want).sum().item())} cells")
+            err = (a - want).abs().max().item() * scale
+        else:
+            check(bool(((a - want).abs() <= 1e-5 * want.abs() + 1e-5).all()),
+                  f"{name}: not within rtol 1e-5, atol 1e-5 of plain")
+            err = (a - want).abs().max().item()
+        bounces = drawn if name in UNIFORM_KERNELS else hashed
+        bnd = trace_bound(s, bounces, B, name, D)
+        k22[name] = dict(
+            cells=a.numel(), equal_share=(a == want).float().mean().item(),
+            max_abs_err=err, bit_identical_rerun=True,
+            traced_bounces_per_photon=bounces / B,
+            ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3),
+            bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+        results[name] = {k: k22[name][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+    say("inkernel_kernels_vs_plain", scene="mini", batch=B, **k22)
+
+    # 23. the exactness identities ------------------------------------------
+    f, gc, ev, T = (s["aa_c"].fields, s["aa_c"].group_counts, s["ev"],
+                    s["total_c"])
+    bound = sp.stream_bound(ph)
+    streams = {
+        "trace_splat_wide_rng_f32": ("trace_deposits_wide_rng",
+                                     pw.trace_deposits_wide_rng(
+                                         f, gc, ev, s["seed"], B, B, ph)),
+        "trace_splat_wide_f32": ("trace_deposits_wide",
+                                 pw.trace_deposits_wide(f, gc, ev, u, B, ph)),
+    }
+    same = {}
+    for name, (trace, (idx, col)) in streams.items():
+        got = runs[name][0]()
+        want = sp.fused_splat(idx, col, T, bound)
+        sync()
+        check(torch.equal(got, want),
+              f"{name}: differs from {trace} + fused_splat on "
+              f"{int((got != want).sum().item())} cells")
+        same[name] = f"{trace} + fused_splat"
+    _, runs1 = inkernel_runs(s, cfg, dev, power=1.0)
+    diff1 = runs1["trace_splat_wide_diff_rng_f32"][0]()
+    prod1 = runs1["trace_splat_wide_rng_f32"][0]()
+    sync()
+    check(torch.equal(diff1, prod1), "trace_splat_wide_diff_rng_f32 at "
+          "uniform albedo and power 1 differs from trace_splat_wide_rng_f32")
+    say("inkernel_identities", scene="mini", batch=B,
+        bit_equal_to_stream_route=same,
+        diff_f32_at_defaults_bit_equal_to="trace_splat_wide_rng_f32",
+        bit_identical_reruns=sorted(F32_KERNELS))
+
+    # 24. the physics gate of phase 5 on the three routes -------------------
+    scene = s5["scene"]
+    aa5 = pack_aa(scene.walls, device=dev)
+    routes = (("inkernel_device_rng", True, "inkernel",
+               "trace_splat_wide_rng_f32", ["--splat", "inkernel"]),
+              ("inkernel_i8_threefry", False, "inkernel_i8",
+               "trace_splat_wide_i8", ["--no-device-rng"]),
+              ("inkernel_threefry", False, "inkernel",
+               "trace_splat_wide_f32", ["--no-device-rng", "--splat",
+                                        "inkernel"]))
+    gates = {}
+    for key, device_rng, splat, kernel, _ in routes:
+        c = route(s5["cfg"], device_rng, splat).photon
+        reset_launches()
+        raw = pw.render_photons(s5["em"], scene.num_texels, c, aa5)
+        sync()
+        launches = read_launches()
+        check(launches[kernel] > 0
+              and sum(launches.values()) == launches[kernel],
+              f"{key}: launches {launches}")
+        gates[key] = dict(launches=launches[kernel],
+                          **physics_bands(scene, raw.cpu().numpy(), key))
+    say("inkernel_physics_vs_reference", scene="mini",
+        samples_per_area=s5["cfg"].photon.samples_per_area, **gates)
+
+    # 25. the routes through the CLI on mini, the fit, and 4x4 -------------
+    counts = s["em"].counts
+    n_batches = sum(-(-int(n) // B) for n in counts if n > 0)
+    photons = int(counts.sum())
+    cli25 = {}
+    for key, _, _, kernel, flags in routes:
+        with tempfile.TemporaryDirectory() as tmp:
+            wall, launches, out = cli_render([str(mini), "30", *flags], tmp,
+                                             27)
+            for art in ("geometry", "collisionMap"):
+                check((out / f"{art}.json").read_bytes()
+                      == (FIXTURES / f"mini_{art}.json").read_bytes(),
+                      f"{art}.json differs from the fixture")
+        check(launches[kernel] == n_batches
+              and sum(launches.values()) == n_batches,
+              f"{key}: launches {launches}, want {n_batches} of {kernel}")
+        results[kernel]["launches"] = launches[kernel]
+        cli25[key] = dict(wall_s=wall, photons_per_s=photons / wall,
+                          launches={kernel: launches[kernel]})
+    steps = 100
+    fit_batches = len(make_diff_renderer_wide(
+        s["em"], s["scene"].num_texels,
+        route(cfg, True, "inkernel").photon,
+        pack_aa(s["scene"].walls, device=dev)).batches)
+    with tempfile.TemporaryDirectory() as tmp:
+        target = pathlib.Path(tmp) / "target"
+        check(cli.main(["render", str(mini), "30", "--dump-raw", "--out",
+                        str(target)]) == 0, "render --dump-raw failed")
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        rc = cli.main(["fit", str(mini), str(target / "tiles"), "30",
+                       "--splat", "inkernel", "--fit-init-albedo", "0.6",
+                       "--fit-init-power", "0.5", "--out",
+                       str(pathlib.Path(tmp) / "fit")])
+        sync()
+        wall_fit = time.perf_counter() - t0
+        fit_launches = read_launches()
+        check(rc == 0, f"fit --splat inkernel returned {rc}")
+        rep = json.loads((pathlib.Path(tmp) / "fit" / "fitted.json")
+                         .read_text())
+    check(rep["final_loss"] < rep["initial_loss"] / 10,
+          f"fit --splat inkernel: loss {rep['initial_loss']} -> "
+          f"{rep['final_loss']}")
+    n_diff = fit_launches["trace_splat_wide_diff_rng_f32"]
+    n_fold = fit_launches["trace_fold_wide_rng"]
+    check(n_diff == (steps + 1) * fit_batches
+          and n_fold == steps * fit_batches
+          and sum(fit_launches.values()) == n_diff + n_fold,
+          f"fit --splat inkernel: launches {fit_launches}")
+    results["trace_splat_wide_diff_rng_f32"]["launches"] = n_diff
+    cli25["fit_inkernel"] = dict(
+        steps=steps, initial_loss=rep["initial_loss"],
+        final_loss=rep["final_loss"],
+        loss_ratio=rep["final_loss"] / rep["initial_loss"],
+        wall_s=wall_fit, wall_s_per_step=wall_fit / steps,
+        launches={k: fit_launches[k] for k in (
+            "trace_splat_wide_diff_rng_f32", "trace_fold_wide_rng")})
+    say("cli_inkernel", scene="mini", photons=photons, batches=n_batches,
+        tiles=27, **cli25)
+
+    # every new kernel on batch 0 of the tiling, then --splat inkernel there
+    u6, runs6 = inkernel_runs(s6, cfg, dev, power=1.7)
+    hashed6, drawn6 = inkernel_bounces(s6, cfg, u6)
+    k25 = {}
+    for name, (run, plain) in runs6.items():
+        bnd = trace_bound(s6, drawn6 if name in UNIFORM_KERNELS else hashed6,
+                          B, name, D)
+        k25[name] = dict(ms=cuda_ms(run, 10), plain_ms=cuda_ms(plain, 1),
+                         bound_ms=bnd[0], bound_by=bnd[1])
+    scene6 = s6["scene"]
+    batches6 = sum(-(-int(n) // B) for n in s6["em"].counts if n > 0)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    tex = run_engine(scene6, route(cfg, True, "inkernel"), dev)
+    wall6 = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["trace_splat_wide_rng_f32"] == batches6
+          and sum(launches.values()) == batches6,
+          f"4x4 inkernel: launches {launches}, want {batches6}")
+    check(bool(np.isfinite(tex).all()) and tex.sum() > 0,
+          "4x4 inkernel render not finite")
+    say("apartment_4x4_inkernel", splat="inkernel", device_rng=True,
+        rects=len(scene6.walls), compact_texels=s6["total_c"],
+        photons=int(s6["em"].counts.sum()), batches=batches6,
+        launches=launches["trace_splat_wide_rng_f32"], wall_s=wall6,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        photons_per_s=int(s6["em"].counts.sum()) / wall6, kernels=k25)
+
+
 def main():
     import torch
 
@@ -1415,6 +1696,7 @@ def main():
 
     ao_radiosity_phases(dev, results, make_layout)
     stream_phases(dev, results, cfg, s, dict(s5, cfg=cfg5), s6)
+    inkernel_phases(dev, results, cfg, s, dict(s5, cfg=cfg5), s6)
 
     print(json.dumps({"kernels": [dict(KERNELS[k], **results[k])
                                   for k in KERNELS]}))

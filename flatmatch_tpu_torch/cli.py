@@ -6,13 +6,13 @@
 Same positional arguments, flags and defaults as `flatmatch_tpu.cli render`
 and `fit` (their production defaults: --device-rng on, --splat
 inkernel_i8), plus `--device` (default cuda). `render` runs the engines
-photon_pallas (the default; --splat inkernel_i8 with the device RNG, and
-the deposit-stream splats fused, fused_i8, scatter, bucket and bucket_exact
-with or without it), ambient_occlusion (fused, or --ao-chunked) and
-radiosity; `fit` runs its default tier. Flags and values outside the ported
-slices exit with an error that names ROADMAP.md rather than being
-ignored. The other commands of the
-JAX package (package, serve, debug) are not ported yet.
+photon_pallas (the default; every --splat, in-kernel or deposit-stream,
+with or without --device-rng), ambient_occlusion (fused, or --ao-chunked)
+and radiosity; `fit` runs the device RNG with the in-kernel splats
+(inkernel_i8, inkernel, and fused_i8 and fused, which the JAX package's fit
+maps onto them). Flags and values outside the ported slices exit with an
+error that names ROADMAP.md rather than being ignored. The other commands
+of the JAX package (package, serve, debug) are not ported yet.
 """
 from __future__ import annotations
 
@@ -52,19 +52,21 @@ def _add_engine_flags(p: argparse.ArgumentParser):
         default=True,
         help="generate uniforms in-kernel with the counter-hash PRNG "
         "(photonmap.cl:21-25 analog); --no-device-rng draws them with "
-        "threefry (jax.random's), for the deposit-stream splats of render "
-        "(not ported for --splat inkernel_i8 or for fit)",
+        "threefry (jax.random's) and passes them to the kernel, for every "
+        "splat of render (fit runs the device RNG only)",
     )
     p.add_argument(
         "--splat",
         choices=["fused", "fused_i8", "inkernel", "inkernel_i8", "bucket",
                  "bucket_exact", "scatter"],
         default="inkernel_i8",
-        help="deposit splat strategy: inkernel_i8 (dithered 7-bit colors "
-        "summed exactly in int32 inside the trace kernel), or a separate "
-        "splat of the deposit stream: fused and bucket (bf16 colors, f32 "
-        "sums), fused_i8 (the 7-bit grid), scatter and bucket_exact (f32 "
-        "colors); inkernel is not ported, and fit runs inkernel_i8 only",
+        help="deposit splat strategy: inside the trace kernel, inkernel_i8 "
+        "(dithered 7-bit colors summed exactly in int32) or inkernel (bf16 "
+        "colors summed in f32); or a separate splat of the deposit stream: "
+        "fused and bucket (bf16 colors, f32 sums), fused_i8 (the 7-bit "
+        "grid), scatter and bucket_exact (f32 colors). fit runs the "
+        "in-kernel splats; its fused and fused_i8 are inkernel and "
+        "inkernel_i8",
     )
     p.add_argument(
         "--radiosity-rays",
@@ -149,16 +151,12 @@ def _outside_slice(args) -> list:
     out = []
     if args.engine not in PORTED_ENGINES:
         out.append(f"--engine {args.engine}")
-    if args.splat == "inkernel":
-        out.append("--splat inkernel")
     if args.cmd == "fit":
-        if args.splat not in ("inkernel", "inkernel_i8"):
-            out.append(f"fit --splat {args.splat}")
+        if args.splat not in ("inkernel", "inkernel_i8", "fused",
+                              "fused_i8"):
+            out.append(f"fit --splat {args.splat} (the diff deposit stream)")
         if not args.device_rng:
             out.append("fit --no-device-rng (threefry draws)")
-    elif not args.device_rng and args.splat == "inkernel_i8":
-        out.append("--no-device-rng (threefry draws) with --splat "
-                   "inkernel_i8")
     if args.checkpoint is not None:
         out.append("--checkpoint")
     if getattr(args, "preview", False):

@@ -16,9 +16,10 @@
 // 64-bit fixed-point integer at a power-of-two scale 2^k chosen by the
 // wrapper (ops/splat.py) so that no texel's sum can pass 2^62, the integers
 // are summed by 64-bit atomicAdd, and each texel is converted to f32 once.
-// Integer addition does not depend on order, so two runs give the same bits.
-// At the engine's k (38 for 131072-photon batches of 8 bounces and colors
-// up to 18) every color above 2^-15 converts exactly, so the sum is the
+// Integer addition does not depend on order, so two runs give the same bits
+// (add_fixed and fixed_to_f32_kernel, trace_wide.cuh). At the engine's k
+// (37 for 131072-photon batches of 8 bounces and colors up to 18) every
+// color above 2^-14 converts exactly, so the sum is the
 // exact sum rounded once to f32: closer to it than any f32 order.
 // Ids outside [0, T) are skipped, as the JAX one-hot drops them; zero
 // colors are skipped.
@@ -32,8 +33,6 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false (see
 // flatmatch_tpu_torch/utils/cuda_build.py).
-#include <cuda_bf16.h>
-
 #include "trace_wide.cuh"
 
 namespace {
@@ -63,6 +62,8 @@ descale_kernel(const int* __restrict__ acc, int n, float scale,
   if (i < n) out[i] = static_cast<float>(acc[i]) * scale;
 }
 
+// add_fixed (trace_wide.cuh) is the per-color sum the in-kernel f32 splat
+// (splat_f32) shares, so both add the same integers for the same deposit.
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 fused_splat_kernel(const int* __restrict__ idx, const float* __restrict__ col,
@@ -73,25 +74,10 @@ fused_splat_kernel(const int* __restrict__ idx, const float* __restrict__ col,
   const int t = idx[r];
   if (static_cast<unsigned>(t) >= static_cast<unsigned>(num_texels)) return;
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    float c = col[3 * static_cast<size_t>(r) + ch];
-    if (kBf16) c = __bfloat162float(__float2bfloat16_rn(c));
-    if (c != 0.0f) {
-      // two's complement: an unsigned add of the signed value
-      const long long v = __float2ll_rn(c * to_fixed);
-      atomicAdd(acc + 3 * t + ch, static_cast<unsigned long long>(v));
-    }
-  }
+  for (int ch = 0; ch < 3; ++ch)
+    add_fixed<kBf16>(acc + 3 * t + ch, col[3 * static_cast<size_t>(r) + ch],
+                     to_fixed);
 }
-
-__global__ void __launch_bounds__(kThreads)
-fixed_to_f32_kernel(const long long* __restrict__ acc, int n,
-                    float from_fixed, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = __ll2float_rn(acc[i]) * from_fixed;
-}
-
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
 
@@ -141,7 +127,5 @@ extern "C" int fm_fused_splat(const int* idx, const float* col,
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  fixed_to_f32_kernel<<<blocks_for(n), kThreads, 0, s>>>(acc, n, from_fixed,
-                                                         out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fixed_to_f32(acc, n, nullptr, from_fixed, out, s);
 }

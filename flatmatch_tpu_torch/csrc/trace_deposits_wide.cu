@@ -7,10 +7,8 @@
 // (body _make_kernel :105-733, stream writes :630-636):
 //   - trace_deposits_wide_rng (:741): the counter-hash draws (HashDraw);
 //   - trace_deposits_wide (:804): the draws read from a [B, U] f32 uniforms
-//     tensor (UniformDraw). The wrapper (engines/photon_wide.py) hands the
-//     kernel a transposed [U, B] copy, so that a warp's load of draw column
-//     c reads 32 neighbouring floats; the [B, U] layout would put them 4 * U
-//     bytes apart.
+//     tensor (UniformDraw, trace_wide.cuh). The wrapper
+//     (engines/photon_wide.py) hands the kernel a transposed [U, B] copy.
 // Both write the JAX package's stream order: photon p = b * TB + w at
 // bounce d goes to row (b * D + d) * TB + w, TB the stream block (the TPU
 // kernel's photon block, S * 128). The 7-bit stream splat keys its dither by
@@ -30,16 +28,6 @@
 #include "trace_wide.cuh"
 
 namespace {
-
-// Draw column c of photon p from the transposed uniforms u_t[c * batch + p].
-struct UniformDraw {
-  const float* __restrict__ u_t;
-  int batch;
-  int p;
-  __device__ __forceinline__ float operator()(int c) const {
-    return u_t[static_cast<size_t>(c) * batch + p];
-  }
-};
 
 template <bool kUniforms>
 __global__ void __launch_bounds__(kThreads)

@@ -1,12 +1,14 @@
 // The photon trace shared by the port's wide kernels: the draws (counter
 // hash, or uniforms passed in), emission and max_depth axis-aligned bounces
-// of one photon, with a callback at every live bounce's deposit.
+// of one photon, with a callback at every live bounce's deposit; and the
+// two deposit splats the in-kernel tiers make of that callback (splat_i8,
+// splat_f32), with the fixed-point f32 sum the stream splats share.
 //
 // It is the body of the TPU factory flatmatch_tpu/engines/
 // photon_pallas_wide.py _make_kernel (:105-733) for one photon:
-//   - kDiff = false: the production trace (scalar albedo; rows 1-4 of the
-//     kernel table), used by trace_splat_wide_rng.cu and
-//     trace_deposits_wide.cu;
+//   - kDiff = false: the production trace (scalar albedo; rows 1-5 of the
+//     kernel table), used by trace_splat_wide_rng.cu, trace_splat_wide.cu
+//     and trace_deposits_wide.cu;
 //   - kDiff = true: the differentiable tier (:290-292, :373-379, :494):
 //     the albedo of a diffuse hit is the per-slot albedo of the winning
 //     rect j, and the callback gets j at a diffuse hit (-1 at a mirror
@@ -20,6 +22,7 @@
 // own, as the plain PyTorch version (engines/photon_wide.py) rounds it.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,12 +96,23 @@ __device__ __forceinline__ float draw(uint32_t p, uint32_t seed, int c) {
 }
 
 // The draw sources of trace_photon: a functor that returns draw column c of
-// its photon. HashDraw is the counter hash above; the stream trace of
-// trace_deposits_wide.cu adds one that loads precomputed uniforms.
+// its photon. HashDraw is the counter hash above; UniformDraw loads the
+// precomputed (threefry) uniforms of photon p from their transposed [U, B]
+// copy u_t[c * batch + p], so that a warp's load of draw column c reads 32
+// neighbouring floats (the [B, U] layout would put them 4 * U bytes apart).
 struct HashDraw {
   uint32_t p, seed;
   __device__ __forceinline__ float operator()(int c) const {
     return draw(p, seed, c);
+  }
+};
+
+struct UniformDraw {
+  const float* __restrict__ u_t;
+  int batch;
+  int p;
+  __device__ __forceinline__ float operator()(int c) const {
+    return u_t[static_cast<size_t>(c) * batch + p];
   }
 };
 
@@ -133,6 +147,65 @@ __device__ __forceinline__ void splat_i8(int* acc, const Params& P,
     if (qg) atomicAdd(t + 1, qg);
     if (qb) atomicAdd(t + 2, qb);
   }
+}
+
+// The deterministic f32 sum (no float atomics): a color becomes the 64-bit
+// integer c * 2^k rounded to nearest, added by 64-bit atomicAdd (two's
+// complement: an unsigned add of the signed value); each texel's sum is
+// converted to f32 once (fixed_to_f32_kernel). to_fixed = 2^k, with k chosen
+// by the wrapper (ops/splat.fixed_point_scale) so that no sum passes 2^62.
+// Integer addition does not depend on order, so two runs give the same bits.
+// With kBf16 the color is first rounded to bf16 once (round to nearest even,
+// as astype(bfloat16)); zeros are skipped.
+template <bool kBf16>
+__device__ __forceinline__ void add_fixed(unsigned long long* a, float c,
+                                          float to_fixed) {
+  if (kBf16) c = __bfloat162float(__float2bfloat16_rn(c));
+  if (c != 0.0f) {
+    const long long v = __float2ll_rn(c * to_fixed);
+    atomicAdd(a, static_cast<unsigned long long>(v));
+  }
+}
+
+// The in-kernel f32 splat of one deposit: each channel rounded to bf16, as
+// the TPU kernel's (c * alive).astype(bfloat16) (photon_pallas_wide.py:
+// 549-551), and added in fixed point to the int64 [T, 3] accumulator; ids
+// outside [0, T) are skipped. It adds what the stream splat
+// (splat_stream.cu, fused_splat_kernel<true>) adds for the same deposit's
+// stream row, so at the same k both sums are the same integers.
+__device__ __forceinline__ void splat_f32(unsigned long long* acc,
+                                          const Params& P, float to_fixed,
+                                          int btex, float cr, float cg,
+                                          float cb) {
+  if (static_cast<unsigned>(btex) < static_cast<unsigned>(P.num_texels)) {
+    unsigned long long* t = acc + 3 * static_cast<size_t>(btex);
+    add_fixed<true>(t, cr, to_fixed);
+    add_fixed<true>(t + 1, cg, to_fixed);
+    add_fixed<true>(t + 2, cb, to_fixed);
+  }
+}
+
+inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+// out[i] = f32(acc[i]) * 2^-k: one rounding to f32, then an exact power-of-
+// two scaling. from_fixed = 2^-k, read from the device when from_ptr is set
+// (the diff tier's run-time grid).
+__global__ void __launch_bounds__(kThreads)
+fixed_to_f32_kernel(const long long* __restrict__ acc, int n,
+                    const float* __restrict__ from_ptr, float from_fixed,
+                    float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = __ll2float_rn(acc[i]) * (from_ptr ? *from_ptr
+                                                        : from_fixed);
+}
+
+inline int launch_fixed_to_f32(const long long* acc, int n,
+                               const float* from_ptr, float from_fixed,
+                               float* out, cudaStream_t s) {
+  if (n <= 0) return 0;
+  fixed_to_f32_kernel<<<blocks_for(n), kThreads, 0, s>>>(acc, n, from_ptr,
+                                                         from_fixed, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // 1/sqrt(x) as 1.0f / sqrtf(x): both IEEE-rounded (-prec-div and

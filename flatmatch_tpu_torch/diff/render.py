@@ -1,9 +1,11 @@
 """Differentiable photon rendering: gradients with respect to per-rect albedo
 and per-emitter power, on the wide kernels.
 
-Counterpart of flatmatch_tpu/diff/render.py, its production tier
-(`make_diff_renderer_wide` at device RNG and the in-kernel 7-bit splat).
-Photon trajectories depend only on the draws and the geometry, never on
+Counterpart of flatmatch_tpu/diff/render.py, its in-kernel tiers
+(`make_diff_renderer_wide` at the device RNG: the 7-bit splat for
+`inkernel_i8` and `fused_i8`, bf16 colors summed in f32 for `inkernel` and
+`fused`, as the JAX renderer maps them, diff/render.py:364-366). Photon
+trajectories depend only on the draws and the geometry, never on
 albedo or power, and every deposit is
 
     deposit(d) = power[e] * base_color * prod_{diffuse hits k<=d} albedo[r_k] * tint_k
@@ -18,6 +20,8 @@ seed (`trace_fold_wide_rng`), folding the lightmap cotangent g:
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -26,6 +30,9 @@ from ..engines import photon_wide as pw
 from ..ops import rng
 from ..ops.aa_scene import AARects
 from ..ops.device_scene import Emitters
+from ..ops.splat import fixed_point_scale, stream_bound
+
+IN_KERNEL_TIERS = ("inkernel", "inkernel_i8", "fused", "fused_i8")
 
 
 def _integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
@@ -41,37 +48,58 @@ def _integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
     return torch.ones_like(x) if acc is None else acc
 
 
+def _const(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((1,), np.float32(x), dtype=torch.float32,
+                      device=like.device)
+
+
+def grid_corr(cfg: PhotonConfig, power_e: torch.Tensor,
+              albedo_aa: torch.Tensor) -> torch.Tensor:
+    """corr = max(1, |power[e]|) * max(1, max(albedo_aa))^D, a one-element
+    f32 tensor on the parameters' device: the factor by which power and
+    albedo can raise one emitter's deposit bound (diff/render.py:274-296).
+    It is exactly 1 at power <= 1 and albedo <= 1."""
+    one = _const(1.0, albedo_aa)
+    return torch.maximum(one, torch.abs(power_e)) * _integer_pow(
+        torch.maximum(one, torch.max(albedo_aa)), int(cfg.max_depth))
+
+
 def scale_pair(cfg: PhotonConfig, power_e: torch.Tensor,
                albedo_aa: torch.Tensor):
     """The dynamic 7-bit grid of one emitter (diff/render.py:274-296):
-    corr = max(1, |power[e]|) * max(1, max(albedo_aa))^D covers the
-    parameter-scaled deposit bound, and (scale, inv_scale) = (base_s *
-    corr, base_inv / corr) with the production constants in f32. At
-    power <= 1 and albedo <= 1, corr is exactly 1 and both equal the
-    production grid. Returns two one-element f32 tensors on the
-    parameters' device."""
-    def const(x):
-        return torch.full((1,), np.float32(x), dtype=torch.float32,
-                          device=albedo_aa.device)
+    (scale, inv_scale) = (base_s * corr, base_inv / corr) with the
+    production constants in f32 and corr = `grid_corr`. At power <= 1 and
+    albedo <= 1 both equal the production grid. Returns two one-element
+    f32 tensors on the parameters' device."""
+    corr = grid_corr(cfg, power_e, albedo_aa)
+    return (_const(pw.splat_color_scale(cfg), albedo_aa) * corr,
+            _const(1.0 / pw.splat_color_scale(cfg), albedo_aa) / corr)
 
-    one = const(1.0)
-    corr = torch.maximum(one, torch.abs(power_e)) * _integer_pow(
-        torch.maximum(one, torch.max(albedo_aa)), int(cfg.max_depth))
-    return (const(pw.splat_color_scale(cfg)) * corr,
-            const(1.0 / pw.splat_color_scale(cfg)) / corr)
+
+def fixed_pair(cfg: PhotonConfig, power_e: torch.Tensor,
+               albedo_aa: torch.Tensor, batch_size: int) -> torch.Tensor:
+    """The f32 tier's fixed-point scale of one emitter: (2^k, 2^-k) as a [2]
+    f32 tensor on the parameters' device, for the stream bound of
+    `batch_size`-photon batches times `grid_corr`, computed there with no
+    host sync. At corr == 1 it is the production route's scale."""
+    bound = stream_bound(dataclasses.replace(cfg,
+                                             photons_per_batch=batch_size))
+    return fixed_point_scale(bound, grid_corr(cfg, power_e, albedo_aa))
 
 
 def check_diff_cfg(cfg: PhotonConfig):
-    """Refuse every tier of the differentiable renderer but its production
-    one, the in-kernel 7-bit splat with the device RNG: the diff stream
-    tiers and the threefry tiers are not ported yet."""
-    if cfg.splat != "inkernel_i8":
+    """Refuse the tiers of the differentiable renderer the port does not
+    run yet: the diff deposit stream (`scatter`, `bucket`, `bucket_exact`)
+    and the threefry draws (device_rng=False)."""
+    if cfg.splat not in IN_KERNEL_TIERS:
         raise pw.unsupported(f"the differentiable renderer with "
-                             f"splat={cfg.splat!r}")
+                             f"splat={cfg.splat!r} (its deposit stream)")
     if not cfg.device_rng:
         raise pw.unsupported("the differentiable renderer with the threefry "
                              "draws (device_rng=False)")
-    pw.check_port_cfg(cfg)
+    if int(cfg.photons_per_batch) < 1:
+        raise ValueError(f"photons_per_batch must be >= 1, got "
+                         f"{cfg.photons_per_batch}")
 
 
 def diff_batch_size(cfg: PhotonConfig) -> int:
@@ -93,7 +121,9 @@ class WideDiffRenderer:
         check_diff_cfg(cfg)
         self.cfg = cfg
         self.B = diff_batch_size(cfg)
-        pw.check_i8_accumulator(cfg, self.B)
+        self.i8 = cfg.splat.endswith("_i8")
+        if self.i8:
+            pw.check_i8_accumulator(cfg, self.B)
         self.aa_c, self.total_c, self.expand = pw.compact_aa(aa, num_texels)
         dev = aa.fields.device
         self.device = dev
@@ -116,6 +146,9 @@ class WideDiffRenderer:
         return v
 
     def forward_loop(self, albedo, power) -> torch.Tensor:
+        """The forward of every batch on the tier's kernel: the 7-bit
+        accumulator de-scaled on the emitter's grid, or the f32 increment
+        added."""
         cfg, fields = self.cfg, self.aa_c.fields
         gc = self.aa_c.group_counts
         albedo_aa = albedo[self.perm].contiguous()
@@ -127,12 +160,20 @@ class WideDiffRenderer:
         for e, gb, nv, bsz in self.batches:
             if e not in grid:
                 grid[e] = (self.em_vec(e, power),
-                           *scale_pair(cfg, power[e], albedo_aa))
-            ev, scale, inv_scale = grid[e]
-            pw.trace_splat_wide_diff_rng_i8(
-                fields, gc, albedo_aa, ev, rng.batch_seed(cfg.seed, gb), nv,
-                bsz, cfg, self.total_c, inv_scale, out=acc)
-            lm += acc.to(torch.float32) * scale
+                           scale_pair(cfg, power[e], albedo_aa) if self.i8
+                           else fixed_pair(cfg, power[e], albedo_aa, self.B))
+            ev, g = grid[e]
+            seed = rng.batch_seed(cfg.seed, gb)
+            if self.i8:
+                scale, inv_scale = g
+                pw.trace_splat_wide_diff_rng_i8(
+                    fields, gc, albedo_aa, ev, seed, nv, bsz, cfg,
+                    self.total_c, inv_scale, out=acc)
+                lm += acc.to(torch.float32) * scale
+            else:
+                lm += pw.trace_splat_wide_diff_rng_f32(
+                    fields, gc, albedo_aa, ev, seed, nv, bsz, cfg,
+                    self.total_c, g)
         return self.expand(lm)
 
     def backward_replay(self, albedo, power, g):
@@ -190,9 +231,11 @@ def make_diff_renderer_wide(emitters: Emitters, num_texels: int,
                             cfg: PhotonConfig, aa: AARects,
                             tail_shrink: bool = True) -> WideDiffRenderer:
     """Differentiable renderer on the wide kernels
-    (flatmatch_tpu.diff.render.make_diff_renderer_wide at device RNG and
-    splat inkernel_i8). Forward: `trace_splat_wide_diff_rng_i8` per batch,
-    de-scaled on each emitter's dynamic grid. Backward: replays every batch
-    with `trace_fold_wide_rng`. `tail_shrink` runs each emitter's last
-    batch on a smaller grid, bit-identically."""
+    (flatmatch_tpu.diff.render.make_diff_renderer_wide at the device RNG
+    and an in-kernel splat). Forward: `trace_splat_wide_diff_rng_i8` per
+    batch, de-scaled on each emitter's dynamic grid (`inkernel_i8`,
+    `fused_i8`), or `trace_splat_wide_diff_rng_f32` (`inkernel`, `fused`).
+    Backward, the same for every tier: replays every batch with
+    `trace_fold_wide_rng`, which folds exact f32 colors. `tail_shrink` runs
+    each emitter's last batch on a smaller grid, bit-identically."""
     return WideDiffRenderer(emitters, num_texels, cfg, aa, tail_shrink)

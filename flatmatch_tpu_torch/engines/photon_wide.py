@@ -2,29 +2,37 @@
 and their plain PyTorch versions.
 
 Counterpart of flatmatch_tpu/engines/photon_pallas_wide.py on its in-kernel
-7-bit tier and its deposit-stream tier. The host de-scales or splats each
-batch into the float32 lightmap in the JAX package's batch order
-(photon_pallas_wide.py:1651-1729). Per photon batch:
+tiers (7-bit and f32, with either draw source) and its deposit-stream tier.
+The host de-scales, adds or splats each batch into the float32 lightmap in
+the JAX package's batch order (photon_pallas_wide.py:1651-1729). Per photon
+batch:
 
 - `trace_splat_wide_rng_i8` (`csrc/trace_splat_wide_rng.cu`): the CLI's
   default render (device RNG, `inkernel_i8`). It traces the batch and sums
   its dithered 7-bit deposits into an exact int32 texel accumulator.
+- `trace_splat_wide_rng_f32`, `trace_splat_wide_i8` and
+  `trace_splat_wide_f32` (`csrc/trace_splat_wide.cu`): the other in-kernel
+  routes, `--splat inkernel` (bf16 colors summed in f32: an int64
+  fixed-point sum converted once to an f32 increment) with the counter
+  hash, and both splats with threefry uniforms passed in
+  (`--no-device-rng`).
 - `trace_deposits_wide_rng` and `trace_deposits_wide`
   (`csrc/trace_deposits_wide.cu`): the same trace writing a deposit stream
   in the JAX package's row order (`stream_block`), with the counter-hash
   draws or with threefry uniforms passed in (`ops/threefry.batch_uniforms`,
   the library default). `ops/splat.splat_stream` then sums the stream
   (`--splat fused`, `fused_i8`, `scatter`, `bucket`, `bucket_exact`).
-- `trace_splat_wide_diff_rng_i8` (`csrc/trace_splat_wide_diff_rng.cu`): the
-  forward of the differentiable render, with a per-slot albedo and a 7-bit
-  grid set at run time.
+- `trace_splat_wide_diff_rng_i8` and `trace_splat_wide_diff_rng_f32`
+  (`csrc/trace_splat_wide_diff_rng.cu`): the forward of the differentiable
+  render, with a per-slot albedo and a grid set at run time.
 - `trace_fold_wide_rng` (`csrc/trace_fold_wide_rng.cu`): its backward,
   which replays the batch and folds the lightmap cotangent into per-slot
   albedo cotangents and the batch's <g, lightmap> total.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain version
-(`trace_deposits_rng_plain` or `trace_deposits_wide_plain`, with
-`splat_i8_plain` or `fold_plain`) for CPU tensors only.
+(the plain trace, `trace_deposits_rng_plain` or `trace_deposits_wide_plain`,
+with `splat_i8_plain`, `ops/splat.fused_splat_plain` or `fold_plain`) for
+CPU tensors only.
 """
 from __future__ import annotations
 
@@ -39,7 +47,10 @@ from ..ops.aa_query import MISS, check_on, check_table, nearest_hit
 from ..ops.aa_scene import A_BASE, A_HT, A_WT, F_AA, AARects
 from ..ops.device_scene import Emitters
 from ..ops.sampling import TWO_PI_REF, base_cols
-from ..ops.splat import STREAM_MODES, splat_color_scale, splat_stream
+from ..ops.splat import (
+    STREAM_MODES, fixed_point_scale, fused_splat_plain, splat_color_scale,
+    splat_stream, stream_bound,
+)
 from ..utils.cuda_build import check_smem, launch
 
 THREADS = 256                      # photons per CUDA block
@@ -47,15 +58,15 @@ WARPS = THREADS // 32
 PLAIN_CHUNK = 16384                # photons per step of the plain version
 LANES = 128                        # the JAX engine's batch quantum
 MAX_SUBLANES = 64                  # the JAX engine's photon-block height
+INKERNEL_MODES = ("inkernel", "inkernel_i8")
 
 
 def unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to flatmatch_tpu_torch yet; the port runs "
-        f"the photon render (in-kernel 7-bit splat with the device RNG, and "
-        f"the deposit-stream splats with either draw source), the fit and "
-        f"the ambient-occlusion and radiosity engines on axis-aligned "
-        f"scenes (see ROADMAP.md)"
+        f"the photon render (every splat, with either draw source), the fit "
+        f"(in-kernel splats, device RNG) and the ambient-occlusion and "
+        f"radiosity engines on axis-aligned scenes (see ROADMAP.md)"
     )
 
 
@@ -264,6 +275,12 @@ def stream_rows(idx: torch.Tensor, col: torch.Tensor, block: int):
             .contiguous())
 
 
+def uniform_draws(uniforms: torch.Tensor):
+    """The draws of `_trace_plain` from a [B, U] uniforms tensor: photon p
+    draws its column c from uniforms[p, c]."""
+    return lambda pid: lambda c: uniforms[pid, c]
+
+
 def trace_deposits_wide_plain(
     fields: torch.Tensor, group_counts, em_vec: torch.Tensor,
     uniforms: torch.Tensor, n_valid: int, cfg: PhotonConfig,
@@ -272,9 +289,8 @@ def trace_deposits_wide_plain(
     """Plain version of `trace_deposits_wide`: the stream of one batch whose
     photon p draws its column c from uniforms[p, c] ([B, U] f32)."""
     B = uniforms.shape[0]
-    idx, col, _ = _trace_plain(
-        fields, group_counts, em_vec, n_valid, B, cfg,
-        lambda pid: lambda c: uniforms[pid, c])
+    idx, col, _ = _trace_plain(fields, group_counts, em_vec, n_valid, B, cfg,
+                               uniform_draws(uniforms))
     return stream_rows(idx, col, block or stream_block(B))
 
 
@@ -295,6 +311,43 @@ def splat_i8_plain(idx: torch.Tensor, col: torch.Tensor, num_texels: int,
     flat = (idx.to(torch.int64)[:, :, None] * 3 + ch).reshape(-1)
     acc.view(-1).index_add_(0, flat, q.to(torch.int32).reshape(-1))
     return acc
+
+
+def splat_f32_plain(idx: torch.Tensor, col: torch.Tensor,
+                    num_texels: int) -> torch.Tensor:
+    """The in-kernel f32 splat of a photon-major deposit stream (idx [B, D],
+    col [B, D, 3]): colors rounded to bf16 once and summed in f32
+    (`ops/splat.fused_splat_plain`, `index_add_`'s order)."""
+    return fused_splat_plain(idx.reshape(-1), col.reshape(-1, 3), num_texels)
+
+
+def trace_splat_wide_rng_f32_plain(
+    fields: torch.Tensor, group_counts, em_vec: torch.Tensor, seed: int,
+    n_valid: int, batch_size: int, cfg: PhotonConfig, num_texels: int,
+    albedo_aa: torch.Tensor = None,
+) -> torch.Tensor:
+    """Plain version of `trace_splat_wide_rng_f32` and, with `albedo_aa`,
+    of `trace_splat_wide_diff_rng_f32`: the plain trace, `splat_f32_plain`."""
+    idx, col, _ = trace_deposits_rng_plain(fields, group_counts, em_vec, seed,
+                                           n_valid, batch_size, cfg,
+                                           albedo_aa)
+    return splat_f32_plain(idx, col, num_texels)
+
+
+def trace_splat_wide_plain(
+    fields: torch.Tensor, group_counts, em_vec: torch.Tensor,
+    uniforms: torch.Tensor, n_valid: int, cfg: PhotonConfig,
+    num_texels: int, i8: bool, out: torch.Tensor = None,
+) -> torch.Tensor:
+    """Plain version of `trace_splat_wide_i8` (the int32 accumulator, into
+    `out` if given) and `trace_splat_wide_f32` (the f32 increment)."""
+    idx, col, _ = _trace_plain(fields, group_counts, em_vec, n_valid,
+                               uniforms.shape[0], cfg,
+                               uniform_draws(uniforms))
+    if i8:
+        inv_s = float(np.float32(1.0 / splat_color_scale(cfg)))
+        return splat_i8_plain(idx, col, num_texels, inv_s, out)
+    return splat_f32_plain(idx, col, num_texels)
 
 
 def splat_diff_i8_plain(idx: torch.Tensor, col: torch.Tensor,
@@ -347,6 +400,25 @@ def _check_batch(fields, group_counts, em_vec, n_valid, batch_size,
     return n
 
 
+def _check_albedo(albedo_aa, n):
+    if tuple(albedo_aa.shape) != (n,):
+        raise ValueError(f"albedo_aa must be [{n}], got "
+                         f"{tuple(albedo_aa.shape)}")
+
+
+def _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid, cfg):
+    """Checks of the uniforms-in wrappers: uniforms [B, U] f32, U = 4 + 3 *
+    max_depth, on the scene table's device. Returns (N, B)."""
+    U = uniforms_per_photon(cfg.max_depth)
+    if uniforms.dim() != 2 or uniforms.shape[1] != U:
+        raise ValueError(f"uniforms must be [B, {U}], got "
+                         f"{tuple(uniforms.shape)}")
+    B = uniforms.shape[0]
+    n = _check_batch(fields, group_counts, em_vec, n_valid, B,
+                     uniforms=uniforms)
+    return n, B
+
+
 def _check_acc(out, num_texels, dev):
     if out is None:
         return torch.zeros((num_texels, 3), dtype=torch.int32, device=dev)
@@ -369,6 +441,23 @@ def _trace_args(fields, group_counts, seed, n_valid, cfg, num_texels):
         f(cfg.floor_tint_z_threshold), *(f(t) for t in cfg.floor_tint),
         f(cfg.albedo),
     )
+
+
+def _launch_f32(entry, dev, num_texels, head, tail):
+    """Launch an in-kernel f32 entry point: `head` are its arguments before
+    the int64 [T, 3] scratch and the f32 [T, 3] output it writes, `tail`
+    those after. Returns the output, the batch's lightmap increment."""
+    if not 0 <= 3 * int(num_texels) < 2**31:
+        raise ValueError(f"num_texels={num_texels} out of range")
+    acc = torch.empty((num_texels, 3), dtype=torch.int64, device=dev)
+    out = torch.empty((num_texels, 3), dtype=torch.float32, device=dev)
+    launch(entry, dev, *head, acc.data_ptr(), out.data_ptr(), *tail)
+    return out
+
+
+def _stream_fixed(cfg: PhotonConfig):
+    """(2^k, 2^-k) of the stream route's f32 splat, as f32 arguments."""
+    return tuple(np.float32(x) for x in fixed_point_scale(stream_bound(cfg)))
 
 
 def trace_splat_wide_rng_i8(
@@ -407,6 +496,38 @@ def trace_splat_wide_rng_i8(
 trace_splat_wide_rng_i8.launches = 0
 
 
+def trace_splat_wide_rng_f32(
+    fields: torch.Tensor, group_counts, em_vec: torch.Tensor, seed: int,
+    n_valid: int, batch_size: int, cfg: PhotonConfig, num_texels: int,
+) -> torch.Tensor:
+    """Trace one batch and return its f32 [num_texels, 3] lightmap
+    increment: bf16 colors summed in f32 (`--splat inkernel`).
+
+    CUDA tensors launch `csrc/trace_splat_wide.cu` (the port of
+    photon_pallas_wide.trace_splat_wide_rng(i8=False)); it sums in int64
+    fixed point at the stream route's scale (`ops/splat.fixed_point_scale`
+    of `stream_bound(cfg)`), so it equals `trace_deposits_wide_rng` +
+    `fused_splat` bit for bit; a failed build or launch raises. CPU tensors
+    run the plain version."""
+    n = _check_batch(fields, group_counts, em_vec, n_valid, batch_size)
+    dev = fields.device
+    if dev.type == "cpu":
+        return trace_splat_wide_rng_f32_plain(fields, group_counts, em_vec,
+                                              seed, n_valid, batch_size, cfg,
+                                              num_texels)
+    check_smem("trace_splat_wide_rng_f32", 4 * F_AA * n, n)
+    out = _launch_f32(
+        "fm_trace_splat_wide_rng_f32", dev, num_texels,
+        (fields.data_ptr(), em_vec.data_ptr()),
+        (*_trace_args(fields, group_counts, seed, n_valid, cfg, num_texels),
+         *_stream_fixed(cfg)))
+    trace_splat_wide_rng_f32.launches += 1
+    return out
+
+
+trace_splat_wide_rng_f32.launches = 0
+
+
 def trace_splat_wide_diff_rng_i8(
     fields: torch.Tensor, group_counts, albedo_aa: torch.Tensor,
     em_vec: torch.Tensor, seed: int, n_valid: int, batch_size: int,
@@ -425,9 +546,7 @@ def trace_splat_wide_diff_rng_i8(
     is zeroed and filled."""
     n = _check_batch(fields, group_counts, em_vec, n_valid, batch_size,
                      albedo_aa=albedo_aa, inv_scale=inv_scale)
-    if tuple(albedo_aa.shape) != (n,):
-        raise ValueError(f"albedo_aa must be [{n}], got "
-                         f"{tuple(albedo_aa.shape)}")
+    _check_albedo(albedo_aa, n)
     if inv_scale.numel() != 1:
         raise ValueError("inv_scale must hold one value")
     check_i8_accumulator(cfg, batch_size)
@@ -453,6 +572,44 @@ def trace_splat_wide_diff_rng_i8(
 trace_splat_wide_diff_rng_i8.launches = 0
 
 
+def trace_splat_wide_diff_rng_f32(
+    fields: torch.Tensor, group_counts, albedo_aa: torch.Tensor,
+    em_vec: torch.Tensor, seed: int, n_valid: int, batch_size: int,
+    cfg: PhotonConfig, num_texels: int, fixed: torch.Tensor,
+) -> torch.Tensor:
+    """Diff forward of one batch on the f32 tier (`fit --splat inkernel` or
+    `fused`): the f32 [num_texels, 3] lightmap increment of its bf16
+    colors. `fixed` is the run-time fixed-point scale (2^k, 2^-k), a [2] f32
+    tensor on the scene's device (diff.render.fixed_pair); a diffuse hit on
+    rect slot j multiplies by albedo_aa[j] ([N] f32).
+
+    CUDA tensors launch `csrc/trace_splat_wide_diff_rng.cu` (the port of
+    photon_pallas_wide.trace_splat_wide_diff_rng(i8=False)); a failed build
+    or launch raises. CPU tensors run the plain version, which sums in f32
+    and does not read `fixed`."""
+    n = _check_batch(fields, group_counts, em_vec, n_valid, batch_size,
+                     albedo_aa=albedo_aa, fixed=fixed)
+    _check_albedo(albedo_aa, n)
+    if fixed.numel() != 2:
+        raise ValueError("fixed must hold (2^k, 2^-k)")
+    dev = fields.device
+    if dev.type == "cpu":
+        return trace_splat_wide_rng_f32_plain(fields, group_counts, em_vec,
+                                              seed, n_valid, batch_size, cfg,
+                                              num_texels, albedo_aa)
+    check_smem("trace_splat_wide_diff_rng", 4 * (F_AA + 1) * n, n)
+    out = _launch_f32(
+        "fm_trace_splat_wide_diff_rng_f32", dev, num_texels,
+        (fields.data_ptr(), albedo_aa.data_ptr(), em_vec.data_ptr(),
+         fixed.data_ptr()),
+        _trace_args(fields, group_counts, seed, n_valid, cfg, num_texels))
+    trace_splat_wide_diff_rng_f32.launches += 1
+    return out
+
+
+trace_splat_wide_diff_rng_f32.launches = 0
+
+
 def fold_smem_bytes(n_rects: int, max_depth: int) -> int:
     """Shared memory of the fold kernel: scene table, albedo row and one
     [N] row per warp, plus w and slot of every (bounce, photon)."""
@@ -475,9 +632,7 @@ def trace_fold_wide_rng(
     launch raises. CPU tensors run the plain version (`fold_plain`)."""
     n = _check_batch(fields, group_counts, em_vec, n_valid, batch_size,
                      albedo_aa=albedo_aa, g_c=g_c)
-    if tuple(albedo_aa.shape) != (n,):
-        raise ValueError(f"albedo_aa must be [{n}], got "
-                         f"{tuple(albedo_aa.shape)}")
+    _check_albedo(albedo_aa, n)
     if g_c.dim() != 2 or g_c.shape[1] != 3:
         raise ValueError(f"g_c must be [T, 3], got {tuple(g_c.shape)}")
     if int(n_slots) != n:
@@ -572,13 +727,8 @@ def trace_deposits_wide(
     photon_pallas_wide.trace_deposits_wide) on a transposed [U, B] copy of
     the uniforms; a failed build or launch raises. CPU tensors run the
     plain version."""
-    U = uniforms_per_photon(cfg.max_depth)
-    if uniforms.dim() != 2 or uniforms.shape[1] != U:
-        raise ValueError(f"uniforms must be [B, {U}], got "
-                         f"{tuple(uniforms.shape)}")
-    B = uniforms.shape[0]
-    _check_batch(fields, group_counts, em_vec, n_valid, B,
-                 uniforms=uniforms)
+    _, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
+                           cfg)
     block = _stream_block_of(B, block)
     if fields.device.type == "cpu":
         return trace_deposits_wide_plain(fields, group_counts, em_vec,
@@ -591,6 +741,78 @@ def trace_deposits_wide(
 
 
 trace_deposits_wide.launches = 0
+
+
+def trace_splat_wide_i8(
+    fields: torch.Tensor, group_counts, em_vec: torch.Tensor,
+    uniforms: torch.Tensor, n_valid: int, cfg: PhotonConfig,
+    num_texels: int, out: torch.Tensor = None,
+) -> torch.Tensor:
+    """`trace_splat_wide_rng_i8` with the draws passed in: photon p draws
+    column c from uniforms[p, c] ([B, U] f32, the threefry draws of
+    `ops.threefry.batch_uniforms`). Returns the int32 [num_texels, 3]
+    accumulator of the batch's 7-bit deposits, dithered per photon as the
+    default kernel dithers (de-scale with `splat_color_scale(cfg)`).
+
+    CUDA tensors launch `csrc/trace_splat_wide.cu` (the port of
+    photon_pallas_wide.trace_splat_wide(i8=True)) on a transposed [U, B]
+    copy of the uniforms; a failed build or launch raises. CPU tensors run
+    the plain version. `out`, if given, is zeroed and filled."""
+    n, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
+                           cfg)
+    check_i8_accumulator(cfg, B)
+    dev = fields.device
+    out = _check_acc(out, num_texels, dev)
+    if dev.type == "cpu":
+        return trace_splat_wide_plain(fields, group_counts, em_vec, uniforms,
+                                      n_valid, cfg, num_texels, True, out)
+    check_smem("trace_splat_wide_i8", 4 * F_AA * n, n)
+    inv_s = float(np.float32(1.0 / splat_color_scale(cfg)))
+    u_t = uniforms.t().contiguous()
+    launch("fm_trace_splat_wide_i8", dev,
+           fields.data_ptr(), em_vec.data_ptr(), u_t.data_ptr(),
+           out.data_ptr(), B,
+           *_trace_args(fields, group_counts, 0, n_valid, cfg, num_texels),
+           np.float32(inv_s))
+    trace_splat_wide_i8.launches += 1
+    return out
+
+
+trace_splat_wide_i8.launches = 0
+
+
+def trace_splat_wide_f32(
+    fields: torch.Tensor, group_counts, em_vec: torch.Tensor,
+    uniforms: torch.Tensor, n_valid: int, cfg: PhotonConfig,
+    num_texels: int,
+) -> torch.Tensor:
+    """`trace_splat_wide_rng_f32` with the draws passed in (uniforms as in
+    `trace_splat_wide_i8`): the f32 [num_texels, 3] lightmap increment of
+    the batch's bf16 colors, equal to `trace_deposits_wide` + `fused_splat`
+    bit for bit on the card.
+
+    CUDA tensors launch `csrc/trace_splat_wide.cu` (the port of
+    photon_pallas_wide.trace_splat_wide(i8=False)) on a transposed [U, B]
+    copy of the uniforms; a failed build or launch raises. CPU tensors run
+    the plain version."""
+    n, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
+                           cfg)
+    dev = fields.device
+    if dev.type == "cpu":
+        return trace_splat_wide_plain(fields, group_counts, em_vec, uniforms,
+                                      n_valid, cfg, num_texels, False)
+    check_smem("trace_splat_wide_f32", 4 * F_AA * n, n)
+    u_t = uniforms.t().contiguous()
+    out = _launch_f32(
+        "fm_trace_splat_wide_f32", dev, num_texels,
+        (fields.data_ptr(), em_vec.data_ptr(), u_t.data_ptr()),
+        (B, *_trace_args(fields, group_counts, 0, n_valid, cfg, num_texels),
+         *_stream_fixed(cfg)))
+    trace_splat_wide_f32.launches += 1
+    return out
+
+
+trace_splat_wide_f32.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -671,12 +893,17 @@ def render_all_wide(fields, group_counts, emitters: Emitters,
                     cfg: PhotonConfig, batch_size: int, schedule,
                     num_texels: int) -> torch.Tensor:
     """The whole emitter schedule, one batch after another into the f32
-    lightmap (photon_pallas_wide._render_all_wide). `inkernel_i8`: one
-    launch per batch, its int32 accumulator de-scaled. The stream tiers:
-    the stream trace (counter hash, or threefry uniforms without the device
-    RNG), then `splat_stream`. Each emitter's tail batch runs at
-    `tail_batch_size`, on the stream tiers in whole stream blocks, so its
-    stream is the first rows of the full batch's."""
+    lightmap (photon_pallas_wide._render_all_wide). The draws are the
+    counter hash with the device RNG, else the batch's threefry uniforms.
+    The in-kernel tiers: one launch per batch, its int32 accumulator
+    de-scaled (`inkernel_i8`) or its f32 increment added (`inkernel`). The
+    stream tiers: the stream trace, then `splat_stream`. Each emitter's
+    tail batch runs at `tail_batch_size` (on the stream tiers in whole
+    stream blocks, so its stream is the first rows of the full batch's).
+    Draws, dither keys and f32 sums depend only on the photon index, and a
+    shrunk threefry batch draws the first rows of the full one, so the
+    shrink changes no bit; the JAX package keeps the full grid on threefry
+    (photon_pallas_wide.py:1713-1719), with the same result."""
     dev = fields.device
     lm = torch.zeros((num_texels, 3), dtype=torch.float32, device=dev)
     evs = {}
@@ -686,17 +913,29 @@ def render_all_wide(fields, group_counts, emitters: Emitters,
             evs[e] = emitter_vector(emitters, e)
         return evs[e]
 
-    if cfg.splat == "inkernel_i8":
+    U = uniforms_per_photon(cfg.max_depth)
+    if cfg.splat in INKERNEL_MODES:
+        i8 = cfg.splat == "inkernel_i8"
         acc = torch.empty((num_texels, 3), dtype=torch.int32, device=dev)
         scale = float(np.float32(splat_color_scale(cfg)))
         for e, gb, nv, bsz in schedule_batches(schedule, batch_size):
-            trace_splat_wide_rng_i8(fields, group_counts, ev(e),
-                                    rng.batch_seed(cfg.seed, gb), nv, bsz,
-                                    cfg, num_texels, out=acc)
-            lm += acc.to(torch.float32) * scale
+            if cfg.device_rng:
+                kernel = (trace_splat_wide_rng_i8 if i8
+                          else trace_splat_wide_rng_f32)
+                draws = (rng.batch_seed(cfg.seed, gb), nv, bsz)
+            else:
+                kernel = trace_splat_wide_i8 if i8 else trace_splat_wide_f32
+                draws = (threefry.batch_uniforms(cfg.seed, gb, bsz, U, dev),
+                         nv)
+            if i8:
+                kernel(fields, group_counts, ev(e), *draws, cfg, num_texels,
+                       out=acc)
+                lm += acc.to(torch.float32) * scale
+            else:
+                lm += kernel(fields, group_counts, ev(e), *draws, cfg,
+                             num_texels)
         return lm
     block = stream_block(batch_size)
-    U = uniforms_per_photon(cfg.max_depth)
     for e, gb, nv, bsz in schedule_batches(schedule, batch_size,
                                            quantum=block):
         if cfg.device_rng:
@@ -712,19 +951,14 @@ def render_all_wide(fields, group_counts, emitters: Emitters,
 
 
 def check_port_cfg(cfg: PhotonConfig):
-    """Refuse the photon configurations the port does not run: the
-    in-kernel bf16 splat, and the in-kernel 7-bit splat with the threefry
-    draws. The stream tiers need a batch that is a multiple of 128, as the
-    JAX wide engine does (photon_pallas_wide.py:1755)."""
+    """Refuse a photon configuration the engine cannot run: a batch under
+    one photon, an unknown splat mode, or, on the stream tiers, a batch
+    that is not a multiple of 128, as the JAX wide engine refuses it
+    (photon_pallas_wide.py:1755)."""
     if int(cfg.photons_per_batch) < 1:
         raise ValueError(f"photons_per_batch must be >= 1, got "
                          f"{cfg.photons_per_batch}")
-    if cfg.splat == "inkernel":
-        raise unsupported("splat='inkernel' (the in-kernel bf16 splat)")
-    if cfg.splat == "inkernel_i8":
-        if not cfg.device_rng:
-            raise unsupported("splat='inkernel_i8' with the threefry draws "
-                              "(device_rng=False)")
+    if cfg.splat in INKERNEL_MODES:
         return
     if cfg.splat not in STREAM_MODES:
         raise ValueError(f"unknown splat mode {cfg.splat!r}")

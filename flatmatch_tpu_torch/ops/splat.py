@@ -50,14 +50,27 @@ def stream_bound(cfg: PhotonConfig) -> float:
             * splat_color_scale(cfg) * 127.0)
 
 
-def fixed_point_scale(total_bound: float):
-    """(2^k, 2^-k) for the fixed-point f32 splat: the largest k at which a
-    texel sum up to `total_bound` stays within 2^62 in int64."""
+def fixed_point_scale(total_bound: float, corr: torch.Tensor = None):
+    """(2^k, 2^-k) for the fixed-point f32 splats: the largest k at which a
+    texel sum up to `total_bound` stays within 2^62 in int64, k = 62 -
+    ceil(log2(bound)) clipped to [-120, 120]. ceil(log2) comes exactly from
+    the bound's binary exponent (frexp), so a power of two is its own.
+
+    Without `corr`: two Python floats. With `corr`, a one-element f32 tensor
+    (the diff tier's grid correction, which scales the deposit bound with
+    power and albedo), the bound is total_bound * corr, taken in float64, and
+    the pair comes back as a [2] f32 tensor on corr's device, computed there
+    without a host sync; at corr == 1 it holds the same two values."""
     if not total_bound > 0 or not math.isfinite(total_bound):
         raise ValueError(f"total_bound must be positive, got {total_bound}")
-    k = 62 - math.ceil(math.log2(total_bound))
-    k = max(-120, min(120, k))
-    return 2.0 ** k, 2.0 ** -k
+    if corr is None:
+        m, e = math.frexp(total_bound)
+        k = max(-120, min(120, 62 - (e - 1 if m == 0.5 else e)))
+        return 2.0 ** k, 2.0 ** -k
+    m, e = torch.frexp(corr.reshape(()).to(torch.float64) * total_bound)
+    k = torch.clamp(62 - e + (m == 0.5).to(e.dtype), -120, 120)
+    one = torch.ones((2,), dtype=torch.float64, device=corr.device)
+    return torch.ldexp(one, torch.stack([k, -k])).to(torch.float32)
 
 
 def dither01(rows: int, device="cpu") -> torch.Tensor:

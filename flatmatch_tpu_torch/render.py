@@ -100,11 +100,11 @@ def run_engine(scene: geometry.Scene, cfg: RenderConfig,
                device="cuda") -> np.ndarray:
     """Run `cfg.engine` on `device` and return the [num_texels, 3] arena
     (main.c:60-79). Ported engines: photon_pallas (then the exposure
-    normalization) with splat `inkernel_i8` at the device RNG, or with the
-    deposit-stream splats `fused` (the library default), `fused_i8`,
-    `scatter`, `bucket` and `bucket_exact` at either draw source (the
-    device RNG, or the threefry draws, the library default);
-    ambient_occlusion and radiosity."""
+    normalization) with every splat, in-kernel (`inkernel_i8`, `inkernel`)
+    or deposit-stream (`fused`, the library default, `fused_i8`,
+    `scatter`, `bucket`, `bucket_exact`), at either draw source (the device
+    RNG, or the threefry draws, the library default); ambient_occlusion and
+    radiosity."""
     from .engines import photon_wide
     from .ops.aa_scene import pack_aa
 

@@ -7,12 +7,15 @@ Each ROOT is a checkout of this repository (for example a `git archive` of
 another commit unpacked into a directory that .gitignore lists). For each,
 in a fresh interpreter, the script imports that checkout's
 flatmatch_tpu_torch, builds its kernels and prints one JSON line: the mean
-CUDA-event milliseconds per 131072-photon batch of the three kernels that
+CUDA-event milliseconds per 131072-photon batch of the five kernels that
 share the trace (`trace_splat_wide_rng_i8`, `trace_splat_wide_diff_rng_i8`,
-`trace_fold_wide_rng`) on batch 0 of `tests/fixtures/mini.png` and of mini
-tiled 4x4, at the CLI's defaults. Give two commits in turns (A B B A) to
-compare them on one card. The last line names the card and its power
-limit. It needs a CUDA device and imports no JAX.
+`trace_fold_wide_rng`, and the stream traces `trace_deposits_wide_rng` and
+`trace_deposits_wide`, whose threefry uniforms are drawn once) and of the
+f32 stream splat `fused_splat` on the counter-hash stream, on batch 0 of
+`tests/fixtures/mini.png` and of mini tiled 4x4, at the CLI's defaults.
+Give two commits in turns (A B B A) to compare them on one card. The last
+line names the card and its power limit. It needs a CUDA device and
+imports no JAX.
 """
 import json
 import pathlib
@@ -49,7 +52,7 @@ def measure(root: str) -> dict:
 
     from flatmatch_tpu_torch.config import DEFAULT_CONFIG
     from flatmatch_tpu_torch.engines import photon_wide as pw
-    from flatmatch_tpu_torch.ops import rng
+    from flatmatch_tpu_torch.ops import rng, splat as sp, threefry
     from flatmatch_tpu_torch.ops.aa_scene import pack_aa
     from flatmatch_tpu_torch.ops.device_scene import pack_emitters
     from flatmatch_tpu_torch.render import compile_scene
@@ -86,6 +89,10 @@ def measure(root: str) -> dict:
             g = torch.from_numpy(np.random.RandomState(1).rand(T, 3).astype(
                 np.float32)).to(dev)
             acc = torch.empty((T, 3), dtype=torch.int32, device=dev)
+            u = threefry.batch_uniforms(cfg.seed, 0, B,
+                                        pw.uniforms_per_photon(cfg.max_depth),
+                                        dev)
+            idx, col = pw.trace_deposits_wide_rng(f, gc, ev, seed, B, B, cfg)
             fns = {
                 "trace_splat_wide_rng_i8": lambda: pw.trace_splat_wide_rng_i8(
                     f, gc, ev, seed, B, B, cfg, T, out=acc),
@@ -94,6 +101,12 @@ def measure(root: str) -> dict:
                         f, gc, alb, ev, seed, B, B, cfg, T, inv, out=acc),
                 "trace_fold_wide_rng": lambda: pw.trace_fold_wide_rng(
                     f, gc, alb, ev, g, seed, B, B, cfg, n),
+                "trace_deposits_wide_rng": lambda: pw.trace_deposits_wide_rng(
+                    f, gc, ev, seed, B, B, cfg),
+                "trace_deposits_wide": lambda: pw.trace_deposits_wide(
+                    f, gc, ev, u, B, cfg),
+                "fused_splat": lambda: sp.fused_splat(
+                    idx, col, T, sp.stream_bound(cfg)),
             }
             out[name] = {k: cuda_ms(fn, REPS[name]) for k, fn in fns.items()}
     return out

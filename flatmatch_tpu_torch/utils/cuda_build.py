@@ -37,7 +37,11 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
     "fm_trace_splat_wide_rng_i8": [_P] * 3 + [_I] * 8 + [_F] * 10 + [_P],
+    "fm_trace_splat_wide_rng_f32": [_P] * 4 + [_I] * 8 + [_F] * 11 + [_P],
+    "fm_trace_splat_wide_i8": [_P] * 4 + [_I] * 9 + [_F] * 10 + [_P],
+    "fm_trace_splat_wide_f32": [_P] * 5 + [_I] * 9 + [_F] * 11 + [_P],
     "fm_trace_splat_wide_diff_rng_i8": [_P] * 5 + [_I] * 8 + [_F] * 9 + [_P],
+    "fm_trace_splat_wide_diff_rng_f32": [_P] * 6 + [_I] * 8 + [_F] * 9 + [_P],
     "fm_trace_fold_wide_rng": [_P] * 6 + [_I] * 8 + [_F] * 9 + [_P],
     "fm_aa_nearest": [_P] * 5 + [_I] * 5 + [_P],
     "fm_nearest_distances": [_P] * 4 + [_I] * 5 + [_F] + [_P],

@@ -588,3 +588,197 @@ def test_stream_trace_launch_refused_for_its_shared_memory(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         pw.trace_deposits_wide_rng(f, (n, 0, 0), ev, 0, 256, 256,
                                    _stream_cfg())
+
+
+# --------------------------------------------------------------------------
+# the in-kernel tiers: trace_splat_wide.cu (three entry points) and the f32
+# tier of the diff forward
+# --------------------------------------------------------------------------
+INKERNEL = ("trace_splat_wide_rng_f32", "trace_splat_wide_i8",
+            "trace_splat_wide_f32", "trace_splat_wide_diff_rng_f32")
+
+
+def _inkernel_calls(name, dev, n_valid, batch, power=1.7):
+    """Each in-kernel kernel of one batch: name -> (wrapper call, its plain
+    version on the same device)."""
+    aa_c, T, alb, ev, _ = _diff_inputs(name, dev, power)
+    _, _, ev0 = _inputs(name, dev)
+    u = _stream_inputs(name, dev, batch)[3]
+    cfg = CFG.photon
+    seed = rng.batch_seed(cfg.seed, 5)
+    f, gc = aa_c.fields, aa_c.group_counts
+    fixed = prender.fixed_pair(cfg, torch.tensor([power], device=dev), alb,
+                               cfg.photons_per_batch)
+    return {
+        "trace_splat_wide_rng_f32": (
+            lambda: pw.trace_splat_wide_rng_f32(f, gc, ev0, seed, n_valid,
+                                                batch, cfg, T),
+            lambda: pw.trace_splat_wide_rng_f32_plain(f, gc, ev0, seed,
+                                                      n_valid, batch, cfg, T)),
+        "trace_splat_wide_i8": (
+            lambda: pw.trace_splat_wide_i8(f, gc, ev0, u, n_valid, cfg, T),
+            lambda: pw.trace_splat_wide_plain(f, gc, ev0, u, n_valid, cfg, T,
+                                              True)),
+        "trace_splat_wide_f32": (
+            lambda: pw.trace_splat_wide_f32(f, gc, ev0, u, n_valid, cfg, T),
+            lambda: pw.trace_splat_wide_plain(f, gc, ev0, u, n_valid, cfg, T,
+                                              False)),
+        "trace_splat_wide_diff_rng_f32": (
+            lambda: pw.trace_splat_wide_diff_rng_f32(
+                f, gc, alb, ev, seed, n_valid, batch, cfg, T, fixed),
+            lambda: pw.trace_splat_wide_rng_f32_plain(
+                f, gc, ev, seed, n_valid, batch, cfg, T, alb)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n_valid,batch", [
+    ("tiny", 1000, 1024),
+    ("mini", 131072, 131072),
+    ("mini", 4097, 8192),     # a tail batch
+])
+def test_inkernel_kernels_match_plain(dev, name, n_valid, batch):
+    """The 7-bit kernel equals its plain version on every int32 cell; the
+    f32 kernels lie within rtol 1e-5 of index_add_'s f32 order; two runs
+    of each give the same bits (no float atomics)."""
+    for kernel, (run, plain) in _inkernel_calls(name, dev, n_valid,
+                                                batch).items():
+        wrapper = getattr(pw, kernel)
+        before = wrapper.launches
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2, kernel
+        assert torch.equal(a, b), kernel
+        want = plain()
+        assert want.sum().item() > 0, kernel
+        if kernel == "trace_splat_wide_i8":
+            assert a.dtype == torch.int32 and torch.equal(a, want), kernel
+        else:
+            np.testing.assert_allclose(a.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-5, err_msg=kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n_valid,batch", [
+    ("tiny", 1000, 1024),
+    ("mini", 131072, 131072),
+])
+def test_inkernel_f32_equals_the_stream_route(dev, name, n_valid, batch):
+    """The in-kernel f32 sums add the integers the stream route's
+    fused_splat adds at the same 2^k: both draw sources equal trace +
+    fused_splat bit for bit, and the diff forward at the scalar albedo and
+    power 1 equals the counter-hash kernel bit for bit."""
+    from flatmatch_tpu_torch.ops import splat as sp
+
+    calls = _inkernel_calls(name, dev, n_valid, batch, power=1.0)
+    aa_c, T, ev = _inputs(name, dev)
+    u = _stream_inputs(name, dev, batch)[3]
+    cfg = CFG.photon            # the kernels' fixed-point scale
+    f, gc = aa_c.fields, aa_c.group_counts
+    seed = rng.batch_seed(cfg.seed, 5)
+    bound = sp.stream_bound(cfg)
+    stream = {
+        "trace_splat_wide_rng_f32": pw.trace_deposits_wide_rng(
+            f, gc, ev, seed, n_valid, batch, cfg),
+        "trace_splat_wide_f32": pw.trace_deposits_wide(f, gc, ev, u, n_valid,
+                                                       cfg),
+    }
+    for kernel, (idx, col) in stream.items():
+        got = calls[kernel][0]()
+        want = sp.fused_splat(idx, col, T, bound)
+        torch.cuda.synchronize()
+        assert want.sum().item() > 0
+        assert torch.equal(got, want), kernel
+    assert torch.equal(calls["trace_splat_wide_diff_rng_f32"][0](),
+                       calls["trace_splat_wide_rng_f32"][0]())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_rng,splat", [
+    (True, "inkernel"), (False, "inkernel_i8"), (False, "inkernel"),
+])
+def test_inkernel_routes_on_card_close_to_cpu(dev, device_rng, splat):
+    """A whole render of tiny on the card and on the CPU: two card renders
+    bit-identical; the 7-bit route within the de-scale's f32 rounding of
+    the CPU's, the f32 routes within rtol 1e-5 (another f32 order)."""
+    cfg = CFG.replace(photon=dataclasses.replace(
+        CFG.photon, photons_per_batch=1024, device_rng=device_rng,
+        splat=splat))
+    scene, _ = compile_scene(str(FIXTURES / "tiny.png"), 30.0, cfg)
+    a = run_engine(scene, cfg, dev)
+    np.testing.assert_array_equal(a, run_engine(scene, cfg, dev))
+    c = run_engine(scene, cfg, "cpu")
+    assert np.isfinite(a).all() and a.sum() > 0
+    np.testing.assert_allclose(a.sum(), c.sum(), rtol=1e-5)
+    assert np.isclose(a, c, rtol=1e-5, atol=1e-6).mean() >= 0.999
+
+
+@pytest.mark.cuda
+def test_diff_renderer_f32_tier_on_card(dev):
+    """`fit --splat inkernel` on the card: the forward runs the f32 diff
+    kernel, the gradients equal the 7-bit tier's bit for bit (one fold for
+    both) and two passes give the same bits."""
+    scene, _ = compile_scene(str(FIXTURES / "tiny.png"), 30.0, CFG)
+    ph = CFG.photon
+    em = pack_emitters(scene, ph.samples_per_area, ph.window_color,
+                       ph.light_color, device=dev)
+    w = torch.from_numpy(np.random.RandomState(1).rand(scene.num_texels, 3)
+                         .astype(np.float32)).to(dev)
+    n = len(scene.walls)
+    grads = {}
+    for splat in ("inkernel", "inkernel", "inkernel_i8"):
+        r = prender.make_diff_renderer_wide(
+            em, scene.num_texels, dataclasses.replace(ph, splat=splat),
+            pack_aa(scene.walls, dev))
+        before = pw.trace_splat_wide_diff_rng_f32.launches
+        a = torch.full((n,), 0.8, device=dev, requires_grad=True)
+        p = torch.full((len(em.counts),), 1.3, device=dev,
+                       requires_grad=True)
+        lm = r(a, p)
+        torch.sum(lm * w).backward()
+        launched = pw.trace_splat_wide_diff_rng_f32.launches - before
+        assert launched == (len(r.batches) if splat == "inkernel" else 0)
+        grads.setdefault(splat, []).append((lm.detach(), a.grad, p.grad))
+    (l1, ga1, gp1), (l2, ga2, gp2) = grads["inkernel"]
+    _, ga8, gp8 = grads["inkernel_i8"][0]
+    assert torch.equal(l1, l2) and l1.sum().item() > 0
+    assert torch.equal(ga1, ga2) and torch.equal(gp1, gp2)
+    assert torch.equal(ga1, ga8) and torch.equal(gp1, gp8)
+
+
+@pytest.mark.cuda
+def test_inkernel_wrappers_refuse_bad_inputs(dev):
+    aa_c, T, alb, ev, _ = _diff_inputs("tiny", dev)
+    u = _stream_inputs("tiny", dev, 256)[3]
+    f, gc, cfg = aa_c.fields, aa_c.group_counts, CFG.photon
+    fixed = torch.ones(2, device=dev)
+    for fn in (pw.trace_splat_wide_i8, pw.trace_splat_wide_f32):
+        with pytest.raises(ValueError):           # uniforms on the CPU
+            fn(f, gc, ev, u.cpu(), 8, cfg, T)
+        with pytest.raises(ValueError):           # [U, B], not contiguous
+            fn(f, gc, ev, u.t().contiguous().t(), 8, cfg, T)
+    with pytest.raises(ValueError):               # emitter vector on the CPU
+        pw.trace_splat_wide_rng_f32(f, gc, ev.cpu(), 0, 8, 256, cfg, T)
+    with pytest.raises(ValueError):               # the scale on the CPU
+        pw.trace_splat_wide_diff_rng_f32(f, gc, alb, ev, 0, 8, 256, cfg, T,
+                                         fixed.cpu())
+    with pytest.raises(ValueError):               # int32 accumulator on CPU
+        pw.trace_splat_wide_i8(f, gc, ev, u, 8, cfg, T,
+                               out=torch.zeros((T, 3), dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", INKERNEL)
+def test_inkernel_wrappers_raise_on_a_failed_launch(dev, kernel,
+                                                    monkeypatch):
+    """A CUDA error from the entry point raises; nothing falls back to the
+    plain version and no launch is counted."""
+    from flatmatch_tpu_torch.utils import cuda_build
+
+    run, _ = _inkernel_calls("tiny", dev, 200, 256)[kernel]
+    cuda_build.load_library()
+    monkeypatch.setattr(cuda_build, "_lib", _FailingLibrary())
+    before = getattr(pw, kernel).launches
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        run()
+    assert getattr(pw, kernel).launches == before

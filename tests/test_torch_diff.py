@@ -399,7 +399,7 @@ def test_fit_cli_writes_report(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--splat", "inkernel"],
+    ["--splat", "bucket"],
     ["--no-device-rng"],
     ["--engine", "photon_xla"],
     ["--checkpoint", "ck.npz"],

@@ -8,7 +8,8 @@ exposure_scale. Tolerance: total energy within 1e-3 and >= 99% of texels
 within rtol 1e-5; the draws and integer sums are exact, and only a
 last-ulp sin/cos/rsqrt difference between XLA and torch can split a path.
 The CLI is checked for its artifacts and for refusing what the port does
-not run (tests/test_torch_stream.py checks the stream tiers it runs).
+not run (tests/test_torch_stream.py checks the stream tiers it runs,
+tests/test_torch_inkernel.py the other in-kernel routes).
 """
 import dataclasses
 
@@ -95,10 +96,10 @@ def test_supersample_render(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--engine", "photon_xla"],
     ["--engine", "photon_oracle"],
-    ["--splat", "inkernel"],
-    ["--no-device-rng"],
-    ["--splat", "inkernel", "--no-device-rng"],
-    ["--no-device-rng", "--splat", "inkernel_i8"],
+    ["--profile", "prof"],
+    ["--process-id", "0"],
+    ["--splat", "inkernel", "--no-device-rng", "--checkpoint", "ck.npz"],
+    ["--no-device-rng", "--splat", "inkernel_i8", "--preview"],
     ["--checkpoint", "ck.npz"],
     ["--preview"],
     ["--coordinator", "localhost:1234"],
@@ -115,16 +116,14 @@ def test_cli_refuses_what_the_slice_does_not_run(flags, tmp_path, capsys):
 
 @pytest.mark.parametrize("change", [
     dict(engine=Engine.PHOTON_ORACLE),
-    dict(photon=dict(device_rng=False)),
-    dict(photon=dict(splat="inkernel")),
+    dict(engine=Engine.PHOTON_XLA, photon=dict(device_rng=False)),
+    dict(engine=Engine.PHOTON_XLA, photon=dict(splat="inkernel")),
 ])
 def test_library_refuses_what_the_slice_does_not_run(change):
-    cfg = _cfg(DEFAULT_CONFIG)
-    if "photon" in change:
-        cfg = cfg.replace(photon=dataclasses.replace(cfg.photon,
-                                                     **change["photon"]))
-    else:
-        cfg = cfg.replace(**change)
+    """The general engines stay unported, whatever the photon route."""
+    cfg = _cfg(DEFAULT_CONFIG).replace(engine=change["engine"])
+    cfg = cfg.replace(photon=dataclasses.replace(cfg.photon,
+                                                 **change.get("photon", {})))
     scene, _ = compile_scene(TINY, 30.0, cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run_engine(scene, cfg, device="cpu")

@@ -326,13 +326,16 @@ def test_fused_i8_matches_fused_statistically():
 @pytest.mark.parametrize("device_rng,splat", [
     (True, "scatter"), (True, "fused"), (True, "fused_i8"),
     (False, "fused"),
+    (True, "inkernel"), (False, "inkernel_i8"), (False, "inkernel"),
 ])
 def test_tail_shrink_bit_identical(device_rng, splat, monkeypatch):
     """Each emitter's tail batch runs at whole stream blocks (8192 photons
     of a 16384 batch here): its stream is the first rows of the full
     batch's, the dropped rows are zeros, and the row keys of the 7-bit
     dither do not move, so the render equals the unshrunk one bit for bit.
-    On the threefry route the shrunk batch draws only its first rows."""
+    On the threefry route the shrunk batch draws only its first rows. The
+    in-kernel routes shrink in blocks of 256 photons: their dither keys and
+    f32 sums depend only on the photon index."""
     cfg = _port_cfg(photons_per_batch=16384, device_rng=device_rng,
                     splat=splat)
     ph = cfg.photon
@@ -340,8 +343,11 @@ def test_tail_shrink_bit_identical(device_rng, splat, monkeypatch):
     em = pack_emitters(scene, ph.samples_per_area, ph.window_color,
                        ph.light_color, "cpu")
     sched = pw.emitter_schedule(em.counts, ph.photons_per_batch)
-    sizes = [b[3] for b in pw.schedule_batches(sched, 16384, True, 8192)]
-    assert 8192 in sizes             # a tail batch is shrunk
+    inkernel = splat in pw.INKERNEL_MODES
+    sizes = [b[3] for b in pw.schedule_batches(
+        sched, 16384, True, pw.THREADS if inkernel else 8192)]
+    # a tail batch is shrunk
+    assert min(sizes) < 16384 if inkernel else 8192 in sizes
     fast = _raw(cfg)
     assert fast.sum() > 0
     monkeypatch.setattr(pw, "tail_batch_size", lambda n, batch, q: batch)
@@ -353,15 +359,19 @@ def test_tail_shrink_bit_identical(device_rng, splat, monkeypatch):
     dict(splat="inkernel", device_rng=True),
     dict(splat="inkernel_i8", device_rng=False),
 ])
-def test_library_refuses_what_stays_unported(photon):
+def test_library_refuses_what_stays_unported(photon, monkeypatch):
+    """The in-kernel routes run on axis-aligned scenes; a scene that needs
+    the general engine (pack_aa gives no table) is still refused."""
     cfg = _port_cfg(photons_per_batch=1024, **photon)
     scene, _ = compile_scene(TINY, 30.0, cfg)
+    monkeypatch.setattr("flatmatch_tpu_torch.ops.aa_scene.pack_aa",
+                        lambda walls, device="cpu": None)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run_engine(scene, cfg, device="cpu")
 
 
 @pytest.mark.parametrize("photon", [
-    dict(splat="fused", device_rng=True),
+    dict(splat="bucket", device_rng=True),
     dict(splat="scatter", device_rng=False),
     dict(splat="inkernel_i8", device_rng=False),
 ])
@@ -375,9 +385,9 @@ def test_diff_renderer_refuses_the_stream_tiers(photon):
 
 
 @pytest.mark.parametrize("argv", [
-    ["render", TINY, "--splat", "inkernel"],
-    ["render", TINY, "--splat", "inkernel_i8", "--no-device-rng"],
-    ["fit", TINY, "tiles", "--splat", "fused"],
+    ["render", TINY, "--splat", "inkernel", "--checkpoint", "ck.npz"],
+    ["fit", TINY, "tiles", "--splat", "inkernel", "--no-device-rng"],
+    ["fit", TINY, "tiles", "--splat", "scatter"],
 ])
 def test_cli_refuses_what_stays_unported(argv, tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
