@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from flatmatch_tpu_torch/csrc and drives the port's
-five paths on the card:
+six groups of paths on the card:
 - the render: the production kernel against its plain PyTorch version,
   `tests/fixtures/mini.png` through the port's CLI at its defaults, the
   physics against the reference C engine's golden lightmap, and a 4x4
@@ -33,7 +33,17 @@ five paths on the card:
   versions on one batch of mini, each f32 kernel against the deposit-stream
   route bit for bit, the physics of `--splat inkernel`, `--no-device-rng`
   and both, those three routes and `fit --splat inkernel` on mini through
-  the CLI, and the 4x4 tiling with `--splat inkernel` (phases 22-25).
+  the CLI, and the 4x4 tiling with `--splat inkernel` (phases 22-25);
+- the fit's threefry and deposit-stream tiers: the threefry kernel against
+  its plain version (photon batches in both layouts, a radiosity chunk),
+  the diff stream, the uniforms-in diff forward (7-bit and f32) and fold
+  against their plain versions on one batch of mini and against the render
+  kernels at the default parameters, `fit --no-device-rng` (7-bit and
+  `--splat inkernel`) and `fit --splat scatter` on mini through the CLI
+  with the gradients of the two tiers compared, the new kernels and one
+  forward plus backward on the 4x4 tiling, and every kernel on mini tiled
+  13x13, whose scene table is past a block's shared memory (phases
+  26-30).
 Any failure exits non-zero. The line before the card's name lists every
 kernel with its launches on its path, its error against its plain version,
 its time, the plain version's time and its bound. The last line of standard
@@ -82,13 +92,32 @@ KERNEL_SITES = {
     "trace_splat_wide_diff_rng_f32": ("engines.photon_wide",
                                       "trace_splat_wide_diff_rng",
                                       f"{TPU_WIDE}:1252"),
+    # jax.random's threefry draws run in XLA, not Pallas: the line is the
+    # JAX diff renderer's batch draw
+    "threefry_uniform": ("ops.threefry", "threefry",
+                         "flatmatch_tpu/diff/render.py:393"),
+    "trace_deposits_wide_diff": ("engines.photon_wide", "trace_deposits_wide",
+                                 f"{TPU_WIDE}:1070"),
+    "trace_splat_wide_diff_i8": ("engines.photon_wide",
+                                 "trace_splat_wide_diff_rng",
+                                 f"{TPU_WIDE}:1168"),
+    "trace_splat_wide_diff_f32": ("engines.photon_wide",
+                                  "trace_splat_wide_diff_rng",
+                                  f"{TPU_WIDE}:1168"),
+    "trace_fold_wide": ("engines.photon_wide", "trace_fold_wide_rng",
+                        f"{TPU_WIDE}:1326"),
 }
-# the in-kernel kernels of phases 22-25 that read threefry uniforms, and
-# those that sum in int64 fixed point
+# the wrapper of a kernel is the function of its name, except
+WRAPPER_NAMES = {"threefry_uniform": "uniform"}
+# rows 6, 7 and 9: the fit's uniforms-in kernels (phases 26-30)
+DIFF_UNIFORM_KERNELS = ("trace_deposits_wide_diff", "trace_splat_wide_diff_i8",
+                        "trace_splat_wide_diff_f32", "trace_fold_wide")
+# the kernels that read threefry uniforms, and those of phases 22-25 that
+# sum in int64 fixed point
 UNIFORM_KERNELS = ("trace_deposits_wide", "trace_splat_wide_i8",
-                   "trace_splat_wide_f32")
+                   "trace_splat_wide_f32") + DIFF_UNIFORM_KERNELS
 F32_KERNELS = ("trace_splat_wide_rng_f32", "trace_splat_wide_f32",
-               "trace_splat_wide_diff_rng_f32")
+               "trace_splat_wide_diff_rng_f32", "trace_splat_wide_diff_f32")
 KERNELS = {
     name: dict(name=name, route="cuda",
                source=f"flatmatch_tpu_torch/csrc/{src}.cu", replaces=tpu)
@@ -120,6 +149,14 @@ FOLD_OPS_PER_BOUNCE = 10
 # scaling and conversion
 SPLAT_I8_OPS = 20
 SPLAT_F32_OPS = 6
+# the threefry kernel per element (csrc/threefry.cu): 20 rounds of add,
+# funnel-shift rotate and xor, the key injections, the counter split and
+# the conversion, about 80 integer operations, at the card's int32 rate:
+# 64 INT32 lanes per SM, 132 SMs on the H100 SXM, at its 1.98 GHz boost
+# clock (one operation per lane and cycle; the FP32 figure of 67 TFLOP/s
+# counts a fused multiply-add as two)
+THREEFRY_OPS = 80
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 def say(phase, **kv):
@@ -177,10 +214,11 @@ def trace_bound(s, bounces, photons, kernel, depth=8):
     uniforms (4 * (4 + 3 * depth) per photon, UNIFORM_KERNELS); written:
     the int32 accumulator (12 bytes a texel; the f32 kernels: the int64
     one, 24 bytes a texel, and the f32 increment, 12; the fold: N + 1 sums;
-    the stream traces: the stream, 16 bytes per photon and bounce)."""
+    the stream traces: the stream, 16 bytes per photon and bounce, 20 with
+    the diff stream's slot)."""
     n = s["aa_c"].fields.shape[1]
     T = s["total_c"]
-    fold = kernel == "trace_fold_wide_rng"
+    fold = kernel.startswith("trace_fold")
     per_bounce = n * OPS_PER_RECT_TEST + OPS_PER_BOUNCE + (
         FOLD_OPS_PER_BOUNCE if fold else 0)
     ops = bounces * per_bounce + photons * OPS_PER_PHOTON
@@ -188,15 +226,16 @@ def trace_bound(s, bounces, photons, kernel, depth=8):
     if kernel in UNIFORM_KERNELS:
         nbytes += 4 * (4 + 3 * depth) * photons
     if kernel.startswith("trace_deposits"):
-        nbytes += 16 * photons * depth
+        nbytes += (20 if kernel.endswith("_diff") else 16) * photons * depth
     elif kernel in F32_KERNELS:
         nbytes += (24 + 12) * T
-    else:
+    elif not fold:
         nbytes += 12 * T
-    if kernel.startswith(("trace_splat_wide_diff_rng", "trace_fold")):
+    if kernel.startswith(("trace_splat_wide_diff", "trace_fold",
+                          "trace_deposits_wide_diff")):
         nbytes += 4 * n
     if fold:
-        nbytes += 4 * (n + 1)
+        nbytes += 12 * T + 4 * (n + 1)     # g read, the sums written
     return bound(nbytes, ops)
 
 
@@ -245,7 +284,7 @@ def wrapper(name):
 
     mod = importlib.import_module(
         f"flatmatch_tpu_torch.{KERNEL_SITES[name][0]}")
-    return getattr(mod, name)
+    return getattr(mod, WRAPPER_NAMES.get(name, name))
 
 
 def reset_launches():
@@ -596,6 +635,8 @@ def profiled(fn):
             group = "ao_fused.cu"
         elif "trace_deposits_kernel" in name:
             group = "trace_deposits_wide.cu"
+        elif "uniform_kernel" in name or "uniform_t_kernel" in name:
+            group = "threefry.cu"
         elif any(k in name for k in ("fused_splat", "descale_kernel",
                                       "fixed_to_f32_kernel")):
             group = "splat_stream.cu"
@@ -732,9 +773,10 @@ def ao_radiosity_phases(dev, results, make_layout):
             check((out / f"{art}.json").read_bytes()
                   == (FIXTURES / f"mini_{art}.json").read_bytes(),
                   f"{art}.json differs from the fixture")
-    check(launches["aa_nearest"] == n_chunks,
-          f"aa_nearest: {launches['aa_nearest']} launches, want {n_chunks}")
-    check(sum(launches.values()) == n_chunks,
+    check(launches["aa_nearest"] == n_chunks
+          and launches["threefry_uniform"] == n_chunks,
+          f"aa_nearest and threefry: {launches}, want {n_chunks} each")
+    check(sum(launches.values()) == 2 * n_chunks,
           f"radiosity launched other kernels: {launches}")
     results["aa_nearest"]["launches"] = n_chunks
 
@@ -930,7 +972,8 @@ def stream_phases(dev, results, cfg, s, s5, s6):
     gates = {}
     for splat, device_rng, kernels in (
             ("fused", True, ("trace_deposits_wide_rng", "fused_splat")),
-            ("fused", False, ("trace_deposits_wide", "fused_splat")),
+            ("fused", False, ("trace_deposits_wide", "fused_splat",
+                              "threefry_uniform")),
             ("fused_i8", True, ("trace_deposits_wide_rng", "fused_splat_i8")),
             ("scatter", True, ("trace_deposits_wide_rng", "fused_splat"))):
         key = f"{splat}_{'device_rng' if device_rng else 'threefry'}"
@@ -957,7 +1000,7 @@ def stream_phases(dev, results, cfg, s, s5, s6):
             ("fused_device_rng", ["--splat", "fused"],
              ("trace_deposits_wide_rng", "fused_splat")),
             ("fused_threefry", ["--no-device-rng", "--splat", "fused"],
-             ("trace_deposits_wide", "fused_splat")),
+             ("trace_deposits_wide", "fused_splat", "threefry_uniform")),
             ("fused_i8_device_rng", ["--splat", "fused_i8"],
              ("trace_deposits_wide_rng", "fused_splat_i8"))):
         with tempfile.TemporaryDirectory() as tmp:
@@ -970,7 +1013,8 @@ def stream_phases(dev, results, cfg, s, s5, s6):
         for k in kernels:
             check(launches[k] == n_batches,
                   f"{key}: {k} launched {launches[k]}, want {n_batches}")
-            results[k].setdefault("launches", launches[k])
+            if k in results:   # the threefry kernel's row comes later
+                results[k].setdefault("launches", launches[k])
         check(sum(launches.values()) == len(kernels) * n_batches,
               f"{key}: other kernels ran: {launches}")
         cli20[key] = dict(wall_s=wall, photons_per_s=photons / wall,
@@ -990,7 +1034,8 @@ def stream_phases(dev, results, cfg, s, s5, s6):
           and res.texels.sum() > 0, "render(png) gave no finite tiles")
     check(launches["trace_deposits_wide"] == n_batches
           and launches["fused_splat"] == n_batches
-          and sum(launches.values()) == 2 * n_batches,
+          and launches["threefry_uniform"] == n_batches
+          and sum(launches.values()) == 3 * n_batches,
           f"render(png) launches {launches}")
     cli20["library_default"] = dict(
         wall_s=wall, photons_per_s=photons / wall,
@@ -1247,8 +1292,10 @@ def inkernel_phases(dev, results, cfg, s, s5, s6):
         raw = pw.render_photons(s5["em"], scene.num_texels, c, aa5)
         sync()
         launches = read_launches()
-        check(launches[kernel] > 0
-              and sum(launches.values()) == launches[kernel],
+        # the threefry routes draw each batch with the threefry kernel
+        draws = 0 if device_rng else launches[kernel]
+        check(launches[kernel] > 0 and launches["threefry_uniform"] == draws
+              and sum(launches.values()) == launches[kernel] + draws,
               f"{key}: launches {launches}")
         gates[key] = dict(launches=launches[kernel],
                           **physics_bands(scene, raw.cpu().numpy(), key))
@@ -1260,7 +1307,7 @@ def inkernel_phases(dev, results, cfg, s, s5, s6):
     n_batches = sum(-(-int(n) // B) for n in counts if n > 0)
     photons = int(counts.sum())
     cli25 = {}
-    for key, _, _, kernel, flags in routes:
+    for key, device_rng, _, kernel, flags in routes:
         with tempfile.TemporaryDirectory() as tmp:
             wall, launches, out = cli_render([str(mini), "30", *flags], tmp,
                                              27)
@@ -1268,8 +1315,10 @@ def inkernel_phases(dev, results, cfg, s, s5, s6):
                 check((out / f"{art}.json").read_bytes()
                       == (FIXTURES / f"mini_{art}.json").read_bytes(),
                       f"{art}.json differs from the fixture")
+        draws = 0 if device_rng else n_batches
         check(launches[kernel] == n_batches
-              and sum(launches.values()) == n_batches,
+              and launches["threefry_uniform"] == draws
+              and sum(launches.values()) == n_batches + draws,
               f"{key}: launches {launches}, want {n_batches} of {kernel}")
         results[kernel]["launches"] = launches[kernel]
         cli25[key] = dict(wall_s=wall, photons_per_s=photons / wall,
@@ -1345,6 +1394,571 @@ def inkernel_phases(dev, results, cfg, s, s5, s6):
         launches=launches["trace_splat_wide_rng_f32"], wall_s=wall6,
         peak_bytes=torch.cuda.max_memory_allocated(),
         photons_per_s=int(s6["em"].counts.sum()) / wall6, kernels=k25)
+
+
+# --------------------------------------------------------------------------
+# the threefry kernel and the fit's threefry and stream tiers (phases 26-30)
+# --------------------------------------------------------------------------
+def fwd_bwd_ms(dev, r, n_rect, n_em, albedo, power):
+    """Device ms of one forward and one backward of loss = mean(lm^2),
+    timed with CUDA events, and the wall seconds of both."""
+    import torch
+
+    a = torch.full((n_rect,), albedo, device=dev, requires_grad=True)
+    p = torch.full((n_em,), power, device=dev, requires_grad=True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    sync()
+    t0 = time.perf_counter()
+    ev[0].record()
+    loss = torch.mean(r(a, p) ** 2)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    sync()
+    wall = time.perf_counter() - t0
+    check(bool(torch.isfinite(a.grad).all() & torch.isfinite(p.grad)
+               .all()), "gradient not finite")
+    return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]), wall
+
+
+def threefry_bound(n):
+    """Bound of one threefry draw of n elements: 4 bytes written per
+    element (the key is two scalars), THREEFRY_OPS integer operations per
+    element at the int32 rate."""
+    t_bytes = 4 * n / HBM_BYTES_PER_S * 1e3
+    t_ops = n * THREEFRY_OPS / INT32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def diff_uniform_runs(s, cfg, dev, power, seed=7):
+    """Rows 6, 7 (i8, f32) and 9 on batch 0 of `s` with its threefry
+    uniforms drawn transposed, as the diff renderer draws them, and diff
+    inputs at `power` (diff_setup): (inputs, name -> (kernel call, plain
+    version on the card))."""
+    import torch
+
+    from flatmatch_tpu_torch.diff.render import diff_block, fixed_pair
+    from flatmatch_tpu_torch.engines import photon_wide as pw
+    from flatmatch_tpu_torch.ops import threefry
+
+    ph = cfg.photon
+    B = ph.photons_per_batch
+    f, gc, T = s["aa_c"].fields, s["aa_c"].group_counts, s["total_c"]
+    n = f.shape[1]
+    d = diff_setup(s, cfg, dev, power, seed)
+    u_t = threefry.batch_uniforms(ph.seed, 0, B,
+                                  pw.uniforms_per_photon(ph.max_depth), dev,
+                                  transposed=True)
+    fixed = fixed_pair(ph, torch.tensor([power], device=dev), d["alb"], B)
+    block = diff_block(B)
+    kw = dict(transposed=True)
+
+    def plain():
+        return pw.trace_uniforms_plain(f, gc, d["ev"], u_t.t(), B, ph,
+                                       d["alb"])
+
+    def plain_stream():
+        idx, col, ridx = plain()
+        return pw.stream_rows(idx, col, block, ridx)
+
+    d.update(u_t=u_t, fixed=fixed, block=block)
+    return d, {
+        "trace_deposits_wide_diff": (
+            lambda: pw.trace_deposits_wide_diff(f, gc, d["alb"], d["ev"], u_t,
+                                                B, ph, block, **kw),
+            plain_stream),
+        "trace_splat_wide_diff_i8": (
+            lambda: pw.trace_splat_wide_diff_i8(f, gc, d["alb"], d["ev"], u_t,
+                                                B, ph, T, d["inv"], **kw),
+            lambda: pw.splat_i8_plain(*plain()[:2], T, d["inv"].item())),
+        "trace_splat_wide_diff_f32": (
+            lambda: pw.trace_splat_wide_diff_f32(f, gc, d["alb"], d["ev"],
+                                                 u_t, B, ph, T, fixed, **kw),
+            lambda: pw.splat_f32_plain(*plain()[:2], T)),
+        "trace_fold_wide": (
+            lambda: pw.trace_fold_wide(f, gc, d["alb"], d["ev"], d["g"], u_t,
+                                       B, ph, n, **kw),
+            lambda: pw.fold_plain(*plain(), d["g"], n)),
+    }
+
+
+def diff_uniform_bounds(s, cfg, u_t, D):
+    """Bounds of rows 6, 7 and 9 on batch 0 of `s`: the traced bounces of
+    its threefry photons (the forward's trajectories: the albedo does not
+    move them)."""
+    from flatmatch_tpu_torch.engines import photon_wide as pw
+
+    ph = cfg.photon
+    B = ph.photons_per_batch
+    block = pw.stream_block(B)
+    _, col = pw.trace_deposits_wide_plain(s["aa_c"].fields,
+                                          s["aa_c"].group_counts, s["ev"],
+                                          u_t.t(), B, ph, block)
+    bounces = stream_bounces(col, B, D, block)
+    return bounces, {name: trace_bound(s, bounces, B, name, D)
+                     for name in DIFF_UNIFORM_KERNELS}
+
+
+def threefry_phases(dev, results, cfg, s, s6, make_layout):
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from flatmatch_tpu_torch import cli
+    from flatmatch_tpu_torch.diff.render import (
+        make_diff_renderer_wide, stream_total_bound,
+    )
+    from flatmatch_tpu_torch.engines import ao, photon_wide as pw
+    from flatmatch_tpu_torch.ops import aa_query, splat as sp, threefry
+    from flatmatch_tpu_torch.ops.aa_scene import pack_aa
+    from flatmatch_tpu_torch.scene.rectangle import num_tiles
+
+    mini = FIXTURES / "mini.png"
+    ph = cfg.photon
+    B, D = ph.photons_per_batch, ph.max_depth
+    U = pw.uniforms_per_photon(D)
+    counts = s["em"].counts
+    n_batches = sum(-(-int(n) // B) for n in counts if n > 0)
+
+    # 26. the threefry kernel against its plain version ---------------------
+    eq26 = {}
+    for gb in (0, 1, n_batches - 1):
+        key = threefry.fold_in(threefry.prng_key(ph.seed), gb)
+        want = threefry.uniform_plain(key, (B, U), dev)
+        flat = threefry.batch_uniforms(ph.seed, gb, B, U, dev)
+        tr = threefry.batch_uniforms(ph.seed, gb, B, U, dev, transposed=True)
+        sync()
+        check(torch.equal(flat, want) and torch.equal(tr, want.t()),
+              f"threefry batch {gb}: differs from its plain version on "
+              f"{int((flat != want).sum().item())} elements")
+        eq26[f"batch_{gb}"] = dict(elements=want.numel(), equal_share=1.0)
+    rad = cfg.radiosity
+    scene = s["scene"]
+    C = min(int(rad.texels_per_chunk), num_tiles(scene.walls[0]))
+    rkey = threefry.fold_in(threefry.fold_in(threefry.prng_key(rad.seed), 0),
+                            0)
+    rshape = (C, int(rad.rays_per_texel), 2)
+    got = threefry.uniform(rkey, rshape, dev)
+    sync()
+    check(torch.equal(got, threefry.uniform_plain(rkey, rshape, dev)),
+          "threefry: radiosity's first chunk differs from its plain version")
+    eq26["radiosity_chunk_0"] = dict(elements=got.numel(), equal_share=1.0)
+    key0 = threefry.fold_in(threefry.prng_key(ph.seed), 0)
+    ms = cuda_ms(lambda: threefry.uniform(key0, (B, U), dev, True), 50)
+    ms_flat = cuda_ms(lambda: threefry.uniform(key0, (B, U), dev), 50)
+    plain_ms = cuda_ms(lambda: threefry.uniform_plain(key0, (B, U), dev), 5)
+    bnd = threefry_bound(B * U)
+    results["threefry_uniform"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+        bound_by=bnd[1], library_ms=plain_ms)
+    say("threefry_vs_plain", scene="mini", batch=B, columns=U, **eq26,
+        ms_per_batch_transposed=ms, ms_per_batch_flat=ms_flat,
+        plain_ms_per_batch=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+        radiosity_chunk_ms=cuda_ms(lambda: threefry.uniform(rkey, rshape,
+                                                            dev), 20))
+
+    # 27. rows 6, 7 and 9 against their plain versions; the identities -----
+    d27, runs = diff_uniform_runs(s, cfg, dev, power=1.3)
+    T27 = s["total_c"]
+    bounces, bounds = diff_uniform_bounds(s, cfg, d27["u_t"], D)
+    k27 = {}
+    for name, (run, plain) in runs.items():
+        a, b = run(), run()
+        want = plain()
+        sync()
+        if name == "trace_deposits_wide_diff":
+            eqs = [(x == y).float().mean().item() if x.dim() == 1 else
+                   (x == y).all(-1).float().mean().item()
+                   for x, y in zip(a, want)]
+            check(eqs == [1.0, 1.0, 1.0],
+                  f"{name}: ids, colors and slots equal on {eqs} of rows")
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"{name}: two runs differ")
+            check(want[1].sum().item() > 0 and bool((want[2] >= 0).any()),
+                  f"{name}: plain stream is empty")
+            err = (a[1] - want[1]).abs().max().item()
+            extra = dict(rows=a[0].numel(), ids_equal=eqs[0],
+                         colors_equal=eqs[1], slots_equal=eqs[2])
+        elif name == "trace_fold_wide":
+            check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                  f"{name}: two runs differ")
+            # f32 sums in another order than index_add_'s: rtol 1e-5
+            da_max = want[0].abs().max().item()
+            check(da_max > 0, f"{name}: plain fold folded nothing")
+            gap = (a[0] - want[0]).abs() - 1e-6 * da_max
+            rel_da = (gap / want[0].abs().clamp(min=1e-30)).max().item()
+            rel_w = abs(a[1].item() - want[1].item()) / abs(want[1].item())
+            check(rel_da <= 1e-5 and rel_w <= 1e-5,
+                  f"{name}: da relative error {rel_da}, w_sum {rel_w}")
+            err = (a[0] - want[0]).abs().max().item()
+            extra = dict(da_max=da_max, da_max_rel_err=rel_da,
+                         w_sum_rel_err=rel_w)
+        else:
+            check(torch.equal(a, b), f"{name}: two runs differ")
+            check(want.sum().item() > 0, f"{name}: plain version is empty")
+            if name.endswith("_i8"):
+                check(torch.equal(a, want), f"{name}: differs from its "
+                      f"plain version on {int((a != want).sum().item())} "
+                      f"cells")
+                err = (a - want).abs().max().item() * d27["scale"].item()
+            else:
+                check(bool(((a - want).abs() <= 1e-5 * want.abs() + 1e-5)
+                           .all()), f"{name}: not within 1e-5 of plain")
+                err = (a - want).abs().max().item()
+            extra = dict(cells=a.numel(),
+                         equal_share=(a == want).float().mean().item())
+        bnd = bounds[name]
+        k27[name] = dict(
+            max_abs_err=err, bit_identical_rerun=True,
+            traced_bounces_per_photon=bounces / B, **extra,
+            ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3),
+            bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+        results[name] = {k: k27[name][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+    # the stream tier's forward splat of that row-6 stream, at the scale
+    # the renderer gives it at power 1.3 (fit --splat scatter|bucket*)
+    idx, col, _ = runs["trace_deposits_wide_diff"][0]()
+    fit_bound = stream_total_bound(ph, torch.tensor(1.3, device=dev),
+                                   d27["alb"], B)
+    check(fit_bound > sp.stream_bound(ph), "power 1.3 left the stream "
+          "tier's bound at the production one")
+    fit_splat = dict(total_bound=fit_bound,
+                     to_fixed=sp.fixed_point_scale(fit_bound)[0])
+    for bf16, plain in ((True, sp.fused_splat_plain),
+                        (False, sp.scatter_plain)):
+        a = sp.fused_splat(idx, col, T27, fit_bound, bf16=bf16)
+        b = sp.fused_splat(idx, col, T27, fit_bound, bf16=bf16)
+        want = plain(idx, col, T27)
+        sync()
+        key = "bf16" if bf16 else "f32"
+        check(torch.equal(a, b), f"fit stream splat ({key}): two runs differ")
+        check(want.sum().item() > 0, f"fit stream splat ({key}): empty")
+        check(bool(((a - want).abs() <= 1e-5 * want.abs() + 1e-6).all()),
+              f"fit stream splat ({key}): not within rtol 1e-5 of plain")
+        err = (a - want).abs().max().item()
+        fit_splat[key] = dict(max_abs_err=err, bit_identical_rerun=True,
+                              equal_share=(a == want).float().mean().item())
+        results["fused_splat"]["max_abs_err"] = max(
+            results["fused_splat"]["max_abs_err"], err)
+    # at albedo 0.9 and power 1: rows 7 and 6 are rows 5a, 5b and 4
+    d1, runs1 = diff_uniform_runs(s, cfg, dev, power=1.0)
+    f, gc, ev, T = (s["aa_c"].fields, s["aa_c"].group_counts, s["ev"],
+                    s["total_c"])
+    u_t = d1["u_t"]
+    same = {
+        "trace_splat_wide_diff_i8": (
+            "trace_splat_wide_i8",
+            pw.trace_splat_wide_i8(f, gc, ev, u_t, B, ph, T,
+                                   transposed=True)),
+        "trace_splat_wide_diff_f32": (
+            "trace_splat_wide_f32",
+            pw.trace_splat_wide_f32(f, gc, ev, u_t, B, ph, T,
+                                    transposed=True)),
+    }
+    for name, (other, want) in same.items():
+        got = runs1[name][0]()
+        sync()
+        check(torch.equal(got, want), f"{name} at albedo 0.9 and power 1 "
+              f"differs from {other}")
+    idx, col, _ = runs1["trace_deposits_wide_diff"][0]()
+    sidx, scol = pw.trace_deposits_wide(f, gc, ev, u_t, B, ph, d1["block"],
+                                        transposed=True)
+    sync()
+    check(torch.equal(idx, sidx) and torch.equal(col, scol),
+          "trace_deposits_wide_diff at albedo 0.9 and power 1 differs from "
+          "trace_deposits_wide at the same block")
+    say("diff_threefry_kernels_vs_plain", scene="mini", batch=B, power=1.3,
+        block=d27["block"], **k27, fit_stream_splat=fit_splat,
+        identities_at_defaults={
+            "trace_splat_wide_diff_i8": "trace_splat_wide_i8",
+            "trace_splat_wide_diff_f32": "trace_splat_wide_f32",
+            "trace_deposits_wide_diff": f"trace_deposits_wide at block "
+                                        f"{d1['block']}"})
+
+    # 28. the three fits through the CLI on mini ----------------------------
+    steps = 100
+    aa_mini = pack_aa(scene.walls, device=dev)
+    cli28 = {}
+    fits = (
+        ("threefry_inkernel_i8", ["--no-device-rng"],
+         ("trace_splat_wide_diff_i8", "trace_fold_wide")),
+        ("threefry_inkernel", ["--no-device-rng", "--splat", "inkernel"],
+         ("trace_splat_wide_diff_f32", "trace_fold_wide")),
+        ("scatter", ["--splat", "scatter"],
+         ("trace_deposits_wide_diff", "fused_splat")),
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        target = pathlib.Path(tmp) / "target"
+        check(cli.main(["render", str(mini), "30", "--dump-raw", "--out",
+                        str(target)]) == 0, "render --dump-raw failed")
+        for key, flags, kernels in fits:
+            c = _fit_cfg(ph, flags)
+            nb = len(make_diff_renderer_wide(s["em"], scene.num_texels, c,
+                                             aa_mini).batches)
+            out = pathlib.Path(tmp) / key
+            reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            rc = cli.main(["fit", str(mini), str(target / "tiles"), "30",
+                           *flags, "--fit-init-albedo", "0.6",
+                           "--fit-init-power", "0.5", "--out", str(out)])
+            sync()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            check(rc == 0, f"fit {flags} returned {rc}")
+            rep = json.loads((out / "fitted.json").read_text())
+            check(rep["final_loss"] < rep["initial_loss"] / 10,
+                  f"fit {flags}: loss {rep['initial_loss']} -> "
+                  f"{rep['final_loss']}")
+            fwd, bwd = kernels
+            want = {fwd: (steps + 1) * nb, bwd: steps * nb,
+                    "threefry_uniform": (2 * steps + 1) * nb}
+            if key == "scatter":       # the stream is traced in both passes
+                want = {fwd: (2 * steps + 1) * nb, bwd: (steps + 1) * nb,
+                        "threefry_uniform": (2 * steps + 1) * nb}
+            ran = {k: v for k, v in launches.items() if v}
+            check(ran == want, f"fit {flags}: launches {ran}, want {want}")
+            for k in want:     # each kernel's count from its first fit
+                results[k].setdefault("launches", launches[k])
+            cli28[key] = dict(
+                steps=steps, batches_per_pass=nb,
+                initial_loss=rep["initial_loss"],
+                final_loss=rep["final_loss"],
+                loss_ratio=rep["final_loss"] / rep["initial_loss"],
+                wall_s=wall, wall_s_per_step=wall / steps, launches=ran)
+    # the gradients of the scatter tier and the threefry f32 tier at the
+    # same parameters: 5e-4 of the largest (tests/test_diff.py:216-224)
+    rs = np.random.RandomState(28)
+    albedo = torch.from_numpy(rs.uniform(0.5, 0.9, len(scene.walls))
+                              .astype(np.float32)).to(dev)
+    power = torch.linspace(0.8, 1.3, len(counts), device=dev)
+    w = torch.from_numpy(rs.rand(scene.num_texels, 3).astype(np.float32)
+                         ).to(dev)
+    grads = {}
+    for splat in ("scatter", "inkernel"):
+        r = make_diff_renderer_wide(
+            s["em"], scene.num_texels,
+            dc.replace(ph, splat=splat, device_rng=False), aa_mini)
+        a = albedo.clone().requires_grad_()
+        p = power.clone().requires_grad_()
+        torch.sum(r(a, p) * w).backward()
+        grads[splat] = (a.grad, p.grad)
+    ga_sc, gp_sc = grads["scatter"]
+    ga_fu, gp_fu = grads["inkernel"]
+    rel_a = ((ga_fu - ga_sc).abs().max() / ga_sc.abs().max()).item()
+    rel_p = ((gp_fu - gp_sc).abs() / gp_sc.abs()).max().item()
+    check(rel_a <= 5e-4 and rel_p <= 5e-4,
+          f"scatter vs inkernel gradients: albedo {rel_a}, power {rel_p}")
+    say("cli_fit_threefry", scene="mini", **cli28,
+        gradients_scatter_vs_inkernel=dict(
+            albedo_max_rel_of_largest=rel_a, power_max_rel=rel_p,
+            bound=5e-4))
+
+    # 29. the 4x4 tiling: the new kernels on batch 0, then one forward plus
+    # backward of the threefry 7-bit tier --------------------------------
+    scene6 = s6["scene"]
+    _, runs6 = diff_uniform_runs(s6, cfg, dev, power=1.3)
+    u6 = threefry.batch_uniforms(ph.seed, 0, B, U, dev, transposed=True)
+    _, bounds6 = diff_uniform_bounds(s6, cfg, u6, D)
+    k29 = {name: dict(ms=cuda_ms(run, 10), plain_ms=cuda_ms(plain, 1),
+                      bound_ms=bounds6[name][0], bound_by=bounds6[name][1])
+           for name, (run, plain) in runs6.items()}
+    r29 = make_diff_renderer_wide(s6["em"], scene6.num_texels,
+                                  dc.replace(ph, device_rng=False),
+                                  pack_aa(scene6.walls, device=dev))
+    reset_launches()
+    fwd29, bwd29, wall29 = fwd_bwd_ms(dev, r29, len(scene6.walls),
+                                      len(s6["em"].counts), 0.6, 0.5)
+    launches = {k: v for k, v in read_launches().items() if v}
+    nb6 = len(r29.batches)
+    want = {"trace_splat_wide_diff_i8": nb6, "trace_fold_wide": nb6,
+            "threefry_uniform": 2 * nb6}
+    check(launches == want, f"4x4 threefry fit step: launches {launches}, "
+          f"want {want}")
+    say("apartment_4x4_threefry_fit_step", rects=len(scene6.walls),
+        batches_per_pass=nb6, photons=int(s6["em"].counts.sum()),
+        forward_ms=fwd29, backward_ms=bwd29, wall_s=wall29,
+        launches=launches, kernels=k29,
+        threefry_ms_per_batch=cuda_ms(
+            lambda: threefry.batch_uniforms(ph.seed, 0, B, U, dev,
+                                            transposed=True), 20))
+
+    # 30. part A: every kernel on a scene past the old shared-memory caps --
+    with tempfile.TemporaryDirectory() as tmp:
+        png = pathlib.Path(tmp) / "mini_13x13.png"
+        make_layout.tiled(str(mini), str(png), 13, 13)
+        s13 = batch_setup(png, cfg, dev)
+    n13 = s13["aa_c"].fields.shape[1]
+    check(n13 == 4563, f"13x13 tiling gave {n13} rects")
+    check(4 * (13 + 1) * n13 > 232448, "13x13 table fits in shared memory")
+    k30 = part_a_checks(s13, cfg, dev)
+    # the production kernel's and the fold's global-table instances at the
+    # CLI's batch: ms per batch beside the bound
+    d13 = diff_setup(s13, cfg, dev, 1.0)
+    bnd13 = trace_bound(s13, traced_bounces(s13, cfg, B), B,
+                        "trace_splat_wide_rng_i8")
+    k30["global_table_ms_per_batch"] = dict(
+        batch=B, trace_splat_wide_rng_i8=cuda_ms(
+            lambda: kernel_batch(s13, cfg, B), 5),
+        trace_fold_wide_rng=cuda_ms(lambda: fold_batch(s13, d13, cfg, B), 5),
+        bound_ms=bnd13[0], bound_by=bnd13[1])
+    del d13
+    scene13 = s13["scene"]
+    aa13 = pack_aa(scene13.walls, device=dev)
+    # the nearest-hit kernels on rays from wall 0 and the AO's first texels
+    from flatmatch_tpu_torch.config import AoConfig
+    from flatmatch_tpu_torch.engines import radiosity
+
+    wall = scene13.walls[0]
+    c = torch.from_numpy(ao.tile_centers(wall)[:64]).to(dev)
+    nrm = torch.from_numpy(np.asarray(wall.n, np.float32)).to(dev)
+    src, direc = radiosity.ff_rays(c, nrm, rkey, 128)
+    dist, tex = aa_query.aa_nearest(aa13.fields, aa13.group_counts, src,
+                                    direc)
+    pdist, ptex = aa_query.aa_nearest_plain(aa13.fields, aa13.group_counts,
+                                            src, direc)
+    sync()
+    check(torch.equal(tex, ptex) and torch.equal(dist, pdist),
+          "aa_nearest on 13x13 differs from its plain version")
+    nd = aa_query.nearest_distances(aa13.fields, aa13.group_counts, src,
+                                    direc, 10.0)
+    check(torch.equal(nd, aa_query.nearest_distances_plain(
+        aa13.fields, aa13.group_counts, src, direc, 10.0)),
+        "nearest_distances on 13x13 differs from its plain version")
+    centers, walls_, dirs, fac, _, _ = ao._ao_fused_prep(
+        scene13, AoConfig(geosphere_level=3))
+    args = [torch.from_numpy(x).to(dev) for x in (centers[:256],
+                                                  walls_[:256], dirs, fac)]
+    got = ao.ao_fused(aa13.fields, aa13.group_counts, *args, 10.0)
+    want = ao.ao_fused_plain(aa13.fields, aa13.group_counts, *args, 10.0)
+    sync()
+    nz = want != 0
+    rel = ((got[nz] - want[nz]).abs() / want[nz].abs()).max().item()
+    check(bool(nz.any()) and bool(((got == 0) == (want == 0)).all())
+          and rel <= 1e-5, f"ao_fused on 13x13: relative error {rel}")
+    k30.update(aa_nearest=dict(rays=src.shape[0], equal_share=1.0,
+                               hit_share=(tex >= 0).float().mean().item()),
+               nearest_distances=dict(rays=src.shape[0], equal_share=1.0),
+               ao_fused=dict(texels=256, max_rel_err=rel))
+    say("past_the_old_shared_memory_caps", scene="mini tiled 13x13",
+        rects=n13, table_bytes=4 * 13 * n13, compact_texels=s13["total_c"],
+        fold_max_rects=pw.fold_max_rects(D), **k30)
+    del s13, aa13
+
+
+def _fit_cfg(ph, flags):
+    """The photon config the fit CLI builds from `flags`."""
+    import dataclasses as dc
+
+    device_rng = "--no-device-rng" not in flags
+    splat = flags[flags.index("--splat") + 1] if "--splat" in flags \
+        else "inkernel_i8"
+    return dc.replace(ph, device_rng=device_rng, splat=splat)
+
+
+def part_a_checks(s, cfg, dev, batch=8192):
+    """Every trace instance and both folds on one batch of `s` (a table
+    past shared memory: the global-table instances) against their plain
+    versions: the 7-bit sums and streams equal, the f32 sums within 1e-5,
+    the folds within rtol 1e-4 (another f32 order)."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from flatmatch_tpu_torch.diff.render import diff_block, fixed_pair
+    from flatmatch_tpu_torch.engines import photon_wide as pw
+    from flatmatch_tpu_torch.ops import threefry
+
+    ph = dc.replace(cfg.photon, photons_per_batch=batch)
+    B, D = batch, ph.max_depth
+    f, gc, ev, T = (s["aa_c"].fields, s["aa_c"].group_counts, s["ev"],
+                    s["total_c"])
+    n = f.shape[1]
+    seed = s["seed"]
+    d = diff_setup(s, cfg, dev, 1.3)
+    alb, dev_ev, inv, g = d["alb"], d["ev"], d["inv"], d["g"]
+    u = threefry.batch_uniforms(ph.seed, 0, B, pw.uniforms_per_photon(D),
+                                dev)
+    fixed = fixed_pair(ph, torch.tensor([1.3], device=dev), alb, B)
+    block, dblock = pw.stream_block(B), diff_block(B)
+    inv_s = float(np.float32(1.0 / pw.splat_color_scale(ph)))
+    hp = pw.trace_deposits_rng_plain(f, gc, ev, seed, B, B, ph)
+    up = pw.trace_uniforms_plain(f, gc, ev, u, B, ph)
+    hd = pw.trace_deposits_rng_plain(f, gc, dev_ev, seed, B, B, ph, alb)
+    ud = pw.trace_uniforms_plain(f, gc, dev_ev, u, B, ph, alb)
+    checks = {
+        "trace_splat_wide_rng_i8": (
+            pw.trace_splat_wide_rng_i8(f, gc, ev, seed, B, B, ph, T),
+            pw.splat_i8_plain(hp[0], hp[1], T, inv_s)),
+        "trace_splat_wide_rng_f32": (
+            pw.trace_splat_wide_rng_f32(f, gc, ev, seed, B, B, ph, T),
+            pw.splat_f32_plain(hp[0], hp[1], T)),
+        "trace_splat_wide_i8": (
+            pw.trace_splat_wide_i8(f, gc, ev, u, B, ph, T),
+            pw.splat_i8_plain(up[0], up[1], T, inv_s)),
+        "trace_splat_wide_f32": (
+            pw.trace_splat_wide_f32(f, gc, ev, u, B, ph, T),
+            pw.splat_f32_plain(up[0], up[1], T)),
+        "trace_deposits_wide_rng": (
+            pw.trace_deposits_wide_rng(f, gc, ev, seed, B, B, ph, block),
+            pw.stream_rows(hp[0], hp[1], block)),
+        "trace_deposits_wide": (
+            pw.trace_deposits_wide(f, gc, ev, u, B, ph, block),
+            pw.stream_rows(up[0], up[1], block)),
+        "trace_deposits_wide_diff": (
+            pw.trace_deposits_wide_diff(f, gc, alb, dev_ev, u, B, ph, dblock),
+            pw.stream_rows(ud[0], ud[1], dblock, ud[2])),
+        "trace_splat_wide_diff_rng_i8": (
+            pw.trace_splat_wide_diff_rng_i8(f, gc, alb, dev_ev, seed, B, B,
+                                            ph, T, inv),
+            pw.splat_i8_plain(hd[0], hd[1], T, inv.item())),
+        "trace_splat_wide_diff_rng_f32": (
+            pw.trace_splat_wide_diff_rng_f32(f, gc, alb, dev_ev, seed, B, B,
+                                             ph, T, fixed),
+            pw.splat_f32_plain(hd[0], hd[1], T)),
+        "trace_splat_wide_diff_i8": (
+            pw.trace_splat_wide_diff_i8(f, gc, alb, dev_ev, u, B, ph, T, inv),
+            pw.splat_i8_plain(ud[0], ud[1], T, inv.item())),
+        "trace_splat_wide_diff_f32": (
+            pw.trace_splat_wide_diff_f32(f, gc, alb, dev_ev, u, B, ph, T,
+                                         fixed),
+            pw.splat_f32_plain(ud[0], ud[1], T)),
+        "trace_fold_wide_rng": (
+            pw.trace_fold_wide_rng(f, gc, alb, dev_ev, g, seed, B, B, ph, n),
+            pw.fold_plain(*hd, g, n)),
+        "trace_fold_wide": (
+            pw.trace_fold_wide(f, gc, alb, dev_ev, g, u, B, ph, n),
+            pw.fold_plain(*ud, g, n)),
+    }
+    sync()
+    out = {}
+    for name, (got, want) in checks.items():
+        if name.startswith("trace_deposits"):
+            ok = all(torch.equal(x, y) for x, y in zip(got, want))
+            nonzero = want[1].sum().item() > 0
+            err = (got[1] - want[1]).abs().max().item()
+        elif name.startswith("trace_fold"):
+            top = want[0].abs().max().item()
+            ok = bool(((got[0] - want[0]).abs()
+                       <= 1e-4 * want[0].abs() + 1e-6 * top).all()) and \
+                abs(got[1].item() - want[1].item()) <= 1e-4 * abs(
+                    want[1].item())
+            nonzero = top > 0
+            err = (got[0] - want[0]).abs().max().item()
+        elif got.dtype == torch.int32:
+            ok, nonzero = torch.equal(got, want), want.sum().item() > 0
+            err = (got - want).abs().max().item()
+        else:
+            ok = bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-5).all())
+            nonzero = want.sum().item() > 0
+            err = (got - want).abs().max().item()
+        check(ok and nonzero, f"{name} on {n} rects differs from its plain "
+              f"version (or is empty)")
+        out[name] = dict(photons=B, max_abs_err=err, equal=True)
+    return out
 
 
 def main():
@@ -1624,28 +2238,9 @@ def main():
     results["trace_splat_wide_diff_rng_i8"]["launches"] = n_diff
     results["trace_fold_wide_rng"]["launches"] = n_fold
 
-    def fwd_bwd_ms(r, n_rect, n_em, albedo, power):
-        """Device ms of one forward and one backward of loss = mean(lm^2),
-        timed with CUDA events, and the wall seconds of both."""
-        a = torch.full((n_rect,), albedo, device=dev, requires_grad=True)
-        p = torch.full((n_em,), power, device=dev, requires_grad=True)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ev[0].record()
-        loss = torch.mean(r(a, p) ** 2)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        check(bool(torch.isfinite(a.grad).all() & torch.isfinite(p.grad)
-                   .all()), "gradient not finite")
-        return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]), wall
-
     r10 = make_diff_renderer_wide(s["em"], s["scene"].num_texels, cfg.photon,
                                   pack_aa(s["scene"].walls, device=dev))
-    fwd10, bwd10, step10 = fwd_bwd_ms(r10, len(s["scene"].walls),
+    fwd10, bwd10, step10 = fwd_bwd_ms(dev, r10, len(s["scene"].walls),
                                       len(s["em"].counts), 0.6, 0.5)
     # steady fit steps (Adam included), and the one-time import that
     # torch.optim's first optimizer pulls in (torch._dynamo), in a fresh
@@ -1683,7 +2278,7 @@ def main():
     plain11b = cuda_ms(lambda: fold_plain(s6, d11, cfg, B), 2)
     r11 = make_diff_renderer_wide(s6["em"], scene6.num_texels, cfg.photon,
                                   pack_aa(scene6.walls, device=dev))
-    fwd11, bwd11, wall11 = fwd_bwd_ms(r11, rects, len(s6["em"].counts),
+    fwd11, bwd11, wall11 = fwd_bwd_ms(dev, r11, rects, len(s6["em"].counts),
                                       cfg.photon.albedo, 1.0)
     b11f = trace_bound(s6, bounces6, B, "trace_splat_wide_diff_rng_i8")
     b11b = trace_bound(s6, bounces6, B, "trace_fold_wide_rng")
@@ -1697,6 +2292,7 @@ def main():
     ao_radiosity_phases(dev, results, make_layout)
     stream_phases(dev, results, cfg, s, dict(s5, cfg=cfg5), s6)
     inkernel_phases(dev, results, cfg, s, dict(s5, cfg=cfg5), s6)
+    threefry_phases(dev, results, cfg, s, s6, make_layout)
 
     print(json.dumps({"kernels": [dict(KERNELS[k], **results[k])
                                   for k in KERNELS]}))

@@ -8,11 +8,13 @@ and `fit` (their production defaults: --device-rng on, --splat
 inkernel_i8), plus `--device` (default cuda). `render` runs the engines
 photon_pallas (the default; every --splat, in-kernel or deposit-stream,
 with or without --device-rng), ambient_occlusion (fused, or --ao-chunked)
-and radiosity; `fit` runs the device RNG with the in-kernel splats
+and radiosity; `fit` runs every --splat too: the in-kernel splats
 (inkernel_i8, inkernel, and fused_i8 and fused, which the JAX package's fit
-maps onto them). Flags and values outside the ported slices exit with an
-error that names ROADMAP.md rather than being ignored. The other commands
-of the JAX package (package, serve, debug) are not ported yet.
+maps onto them) with or without --device-rng, and the deposit-stream splats
+(scatter, bucket, bucket_exact), which draw threefry either way, as the
+JAX package's fit does. Flags and values outside the ported slices exit
+with an error that names ROADMAP.md rather than being ignored. The other
+commands of the JAX package (package, serve, debug) are not ported yet.
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ def _add_engine_flags(p: argparse.ArgumentParser):
         help="generate uniforms in-kernel with the counter-hash PRNG "
         "(photonmap.cl:21-25 analog); --no-device-rng draws them with "
         "threefry (jax.random's) and passes them to the kernel, for every "
-        "splat of render (fit runs the device RNG only)",
+        "splat (fit's deposit-stream splats draw threefry either way)",
     )
     p.add_argument(
         "--splat",
@@ -64,9 +66,8 @@ def _add_engine_flags(p: argparse.ArgumentParser):
         "(dithered 7-bit colors summed exactly in int32) or inkernel (bf16 "
         "colors summed in f32); or a separate splat of the deposit stream: "
         "fused and bucket (bf16 colors, f32 sums), fused_i8 (the 7-bit "
-        "grid), scatter and bucket_exact (f32 colors). fit runs the "
-        "in-kernel splats; its fused and fused_i8 are inkernel and "
-        "inkernel_i8",
+        "grid), scatter and bucket_exact (f32 colors). fit's fused and "
+        "fused_i8 are inkernel and inkernel_i8",
     )
     p.add_argument(
         "--radiosity-rays",
@@ -151,12 +152,6 @@ def _outside_slice(args) -> list:
     out = []
     if args.engine not in PORTED_ENGINES:
         out.append(f"--engine {args.engine}")
-    if args.cmd == "fit":
-        if args.splat not in ("inkernel", "inkernel_i8", "fused",
-                              "fused_i8"):
-            out.append(f"fit --splat {args.splat} (the diff deposit stream)")
-        if not args.device_rng:
-            out.append("fit --no-device-rng (threefry draws)")
     if args.checkpoint is not None:
         out.append("--checkpoint")
     if getattr(args, "preview", False):

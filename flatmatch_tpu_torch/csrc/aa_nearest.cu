@@ -1,6 +1,6 @@
 // Nearest-hit queries for rays read from device memory: one thread per
 // ray, the rect loop of aa_nearest.cuh over the scene table staged in
-// shared memory.
+// shared memory (read from device memory when it does not fit).
 //
 // Replaces two TPU kernels:
 //   - flatmatch_tpu/ops/aa_query.py aa_nearest (:127, kernel :39): the
@@ -25,7 +25,9 @@
 
 namespace {
 
-template <bool kTex>
+// kSmem: the scene table in shared memory, else read from device memory
+// (launch_table, trace_wide.cuh)
+template <bool kTex, bool kSmem>
 __global__ void __launch_bounds__(kThreads)
 nearest_kernel(const float* __restrict__ scene,
                const float* __restrict__ origins,
@@ -33,14 +35,18 @@ nearest_kernel(const float* __restrict__ scene,
                int* __restrict__ tex, int N, int g0, int g1, int g2, int R,
                float sky) {
   extern __shared__ float s_scene[];  // [F_AA][N]
-  stage(s_scene, scene, F_AA * N);
-  __syncthreads();
+  const float* tab = scene;
+  if constexpr (kSmem) {
+    stage(s_scene, scene, F_AA * N);
+    __syncthreads();
+    tab = s_scene;
+  }
   const int stride = gridDim.x * blockDim.x;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < R; i += stride) {
     const size_t r = 3 * static_cast<size_t>(i);
     int btex;
     const float best = aa_nearest_hit<kTex>(
-        s_scene, N, g0, g1, g2, origins[r], origins[r + 1], origins[r + 2],
+        tab, N, g0, g1, g2, origins[r], origins[r + 1], origins[r + 2],
         dirs[r], dirs[r + 1], dirs[r + 2], btex);
     const bool hit = best < kHitBelow;
     if (kTex) {
@@ -57,15 +63,11 @@ int launch_nearest(const float* scene, const float* origins,
                    const float* dirs, float* dist, int* tex, int N, int g0,
                    int g1, int g2, int R, float sky, void* stream) {
   if (R <= 0) return 0;
-  const size_t smem = sizeof(float) * F_AA * static_cast<size_t>(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      nearest_kernel<kTex>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  nearest_kernel<kTex><<<capped_blocks(R, kThreads), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      scene, origins, dirs, dist, tex, N, g0, g1, g2, R, sky);
-  return static_cast<int>(cudaGetLastError());
+  return launch_table(nearest_kernel<kTex, true>, nearest_kernel<kTex, false>,
+                      sizeof(float) * F_AA * static_cast<size_t>(N), 0, 0,
+                      capped_blocks(R, kThreads), kThreads,
+                      static_cast<cudaStream_t>(stream), scene, origins, dirs,
+                      dist, tex, N, g0, g1, g2, R, sky);
 }
 
 }  // namespace

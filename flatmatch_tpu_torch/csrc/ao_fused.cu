@@ -33,6 +33,9 @@ namespace {
 
 constexpr int kAoThreads = 128;  // directions per pass, one per thread
 
+// kSmem: the scene table in shared memory, else read from device memory
+// (launch_table, trace_wide.cuh)
+template <bool kSmem>
 __global__ void __launch_bounds__(kAoThreads)
 ao_fused_kernel(const float* __restrict__ scene,
                 const float* __restrict__ centers,
@@ -42,8 +45,12 @@ ao_fused_kernel(const float* __restrict__ scene,
                 int T, int k_pad, float sky) {
   extern __shared__ float s_scene[];  // [F_AA][N]
   __shared__ float red[kAoThreads];
-  stage(s_scene, scene, F_AA * N);
-  __syncthreads();
+  const float* tab = scene;
+  if constexpr (kSmem) {
+    stage(s_scene, scene, F_AA * N);
+    __syncthreads();
+    tab = s_scene;
+  }
   const int j = threadIdx.x;
   for (int t = blockIdx.x; t < T; t += gridDim.x) {
     const float cx = centers[3 * t];
@@ -56,7 +63,7 @@ ao_fused_kernel(const float* __restrict__ scene,
       const float dx = d[k], dy = d[k_pad + k], dz = d[2 * k_pad + k];
       int unused;
       const float best = aa_nearest_hit<false>(
-          s_scene, N, g0, g1, g2, cx + dx * 1e-5f, cy + dy * 1e-5f,
+          tab, N, g0, g1, g2, cx + dx * 1e-5f, cy + dy * 1e-5f,
           cz + dz * 1e-5f, dx, dy, dz, unused);
       const float dist = best < kHitBelow ? best : sky;
       acc = acc + dist * fac[k];
@@ -85,14 +92,11 @@ extern "C" int fm_ao_fused(const float* scene, const float* centers,
                            void* stream) {
   if (n_texels <= 0) return 0;
   if (k_pad % kAoThreads != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * F_AA * static_cast<size_t>(n_rects);
-  cudaError_t err = cudaFuncSetAttribute(
-      ao_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ao_fused_kernel<<<capped_blocks(n_texels, 1), kAoThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      scene, centers, wall_ids, dirs, fac, sums, n_rects, g0, g1, g2,
-      n_texels, k_pad, sky);
-  return static_cast<int>(cudaGetLastError());
+  // the block's static reduction buffer counts against the same limit
+  return launch_table(ao_fused_kernel<true>, ao_fused_kernel<false>,
+                      sizeof(float) * F_AA * static_cast<size_t>(n_rects),
+                      0, sizeof(float) * kAoThreads, capped_blocks(n_texels, 1),
+                      kAoThreads, static_cast<cudaStream_t>(stream), scene,
+                      centers, wall_ids, dirs, fac, sums, n_rects, g0, g1, g2,
+                      n_texels, k_pad, sky);
 }

@@ -3,13 +3,20 @@
 // launch per photon batch. A separate splat (splat_stream.cu) sums the
 // stream into the lightmap.
 //
-// Replaces two TPU kernels of flatmatch_tpu/engines/photon_pallas_wide.py
+// Replaces three TPU kernels of flatmatch_tpu/engines/photon_pallas_wide.py
 // (body _make_kernel :105-733, stream writes :630-636):
 //   - trace_deposits_wide_rng (:741): the counter-hash draws (HashDraw);
 //   - trace_deposits_wide (:804): the draws read from a [B, U] f32 uniforms
-//     tensor (UniformDraw, trace_wide.cuh). The wrapper
-//     (engines/photon_wide.py) hands the kernel a transposed [U, B] copy.
-// Both write the JAX package's stream order: photon p = b * TB + w at
+//     tensor (UniformDraw, trace_wide.cuh), whose transposed [U, B] copy
+//     the kernel reads (the wrapper in engines/photon_wide.py makes it, or
+//     ops/threefry draws that layout directly);
+//   - trace_deposits_wide_diff (:1070): the uniforms-in trace of the
+//     differentiable tier (kDiff = true: the per-slot albedo of the winning
+//     rect at a diffuse hit, staged beside the table), which also writes
+//     the diffuse-hit slot of every row (-1 at a mirror bounce, a miss or
+//     a dead photon). The diff renderer's `scatter`, `bucket` and
+//     `bucket_exact` tiers run it in both passes.
+// All write the JAX package's stream order: photon p = b * TB + w at
 // bounce d goes to row (b * D + d) * TB + w, TB the stream block (the TPU
 // kernel's photon block, S * 128). The 7-bit stream splat keys its dither by
 // the row, so this order makes it agree with the JAX package bit for bit.
@@ -17,11 +24,12 @@
 // it write id 0 and color 0, as the TPU kernel's alive mask does; the kernel
 // writes those zeros itself, so the stream needs no separate fill.
 //
-// The trace is trace_wide.cuh (kDiff = false), the production kernel's, so
-// the same photon gives the same bits in both. What bounds it on an H100:
-// the rect loop, as in trace_splat_wide_rng.cu, then the stream's 16 bytes
-// per row (R = B * D rows) written and, with uniforms, 4 * U bytes per
-// photon read: about 17 MB written and 15 MB read per 131072-photon batch.
+// The trace is trace_wide.cuh, the production kernel's (kDiff = false) or
+// the diff forward's (kDiff = true), so the same photon gives the same bits
+// in each pair. What bounds it on an H100: the rect loop, as in
+// trace_splat_wide_rng.cu, then the stream's 16 bytes per row (20 with the
+// slot; R = B * D rows) written and, with uniforms, 4 * U bytes per photon
+// read: about 17-21 MB written and 15 MB read per 131072-photon batch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false (see
 // flatmatch_tpu_torch/utils/cuda_build.py).
@@ -29,16 +37,27 @@
 
 namespace {
 
-template <bool kUniforms>
+// kSmem: the scene table (and albedo row) in shared memory, else read from
+// device memory (launch_table, trace_wide.cuh). `albedo` and `ridx` are
+// read and written only when kDiff.
+template <bool kUniforms, bool kDiff, bool kSmem>
 __global__ void __launch_bounds__(kThreads)
 trace_deposits_kernel(const float* __restrict__ scene,
+                      const float* __restrict__ albedo,
                       const float* __restrict__ em,
                       const float* __restrict__ u_t, const Params P,
                       int batch, int block, int* __restrict__ idx,
-                      float* __restrict__ col) {
-  extern __shared__ float s_scene[];  // [F_AA][N]
-  stage(s_scene, scene, F_AA * P.n_rects);
-  __syncthreads();
+                      float* __restrict__ col, int* __restrict__ ridx) {
+  extern __shared__ float smem[];
+  const float* tab = scene;
+  const float* alb = albedo;
+  if constexpr (kSmem) {
+    stage(smem, scene, F_AA * P.n_rects);           // [F_AA][N]
+    if constexpr (kDiff) stage(smem + F_AA * P.n_rects, albedo, P.n_rects);
+    __syncthreads();
+    tab = smem;
+    alb = smem + F_AA * P.n_rects;
+  }
 
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= batch) return;
@@ -47,20 +66,22 @@ trace_deposits_kernel(const float* __restrict__ scene,
   const size_t row0 =
       static_cast<size_t>(p / block) * D * block + p % block;
   int done = 0;
-  auto deposit = [&](int d, int btex, float cr, float cg, float cb, int) {
+  auto deposit = [&](int d, int btex, float cr, float cg, float cb,
+                     int slot) {
     const size_t row = row0 + static_cast<size_t>(d) * block;
     idx[row] = btex;
     col[3 * row] = cr;
     col[3 * row + 1] = cg;
     col[3 * row + 2] = cb;
+    if constexpr (kDiff) ridx[row] = slot;
     done = d + 1;
   };
   if (p < P.n_valid) {
     if constexpr (kUniforms) {
-      trace_photon<false>(s_scene, nullptr, em, P, UniformDraw{u_t, batch, p},
+      trace_photon<kDiff>(tab, alb, em, P, UniformDraw{u_t, batch, p},
                           deposit);
     } else {
-      trace_photon<false>(s_scene, nullptr, em, P,
+      trace_photon<kDiff>(tab, alb, em, P,
                           HashDraw{static_cast<uint32_t>(p), P.seed},
                           deposit);
     }
@@ -71,30 +92,29 @@ trace_deposits_kernel(const float* __restrict__ scene,
     col[3 * row] = 0.0f;
     col[3 * row + 1] = 0.0f;
     col[3 * row + 2] = 0.0f;
+    if constexpr (kDiff) ridx[row] = -1;
   }
 }
 
-template <bool kUniforms>
-int launch_stream(const float* scene, const float* em, const float* u_t,
-                  int* idx, float* col, int batch, int block, int n_rects,
-                  int g0, int g1, int g2, int seed, int n_valid, int max_depth,
-                  int num_texels, float eps, float two_pi, float rr,
-                  float mirror_z, float tint_z, float tint_r, float tint_g,
-                  float tint_b, float albedo, void* stream) {
+template <bool kUniforms, bool kDiff>
+int launch_stream(const float* scene, const float* albedo, const float* em,
+                  const float* u_t, int* idx, float* col, int* ridx,
+                  int batch, int block, int n_rects, int g0, int g1, int g2,
+                  int seed, int n_valid, int max_depth, int num_texels,
+                  float eps, float two_pi, float rr, float mirror_z,
+                  float tint_z, float tint_r, float tint_g, float tint_b,
+                  float albedo_const, void* stream) {
   if (batch <= 0) return 0;
   const Params P = make_params(n_rects, g0, g1, g2, seed, n_valid, max_depth,
                                num_texels, eps, two_pi, rr, mirror_z, tint_z,
-                               tint_r, tint_g, tint_b, albedo, 0.0f);
-  const size_t smem = sizeof(float) * F_AA * static_cast<size_t>(n_rects);
-  cudaError_t err = cudaFuncSetAttribute(
-      trace_deposits_kernel<kUniforms>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (batch + kThreads - 1) / kThreads;
-  trace_deposits_kernel<kUniforms>
-      <<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          scene, em, u_t, P, batch, block, idx, col);
-  return static_cast<int>(cudaGetLastError());
+                               tint_r, tint_g, tint_b, albedo_const, 0.0f);
+  const size_t rows = kDiff ? F_AA + 1 : F_AA;
+  return launch_table(trace_deposits_kernel<kUniforms, kDiff, true>,
+                      trace_deposits_kernel<kUniforms, kDiff, false>,
+                      sizeof(float) * rows * static_cast<size_t>(n_rects), 0, 0,
+                      blocks_for(batch), kThreads,
+                      static_cast<cudaStream_t>(stream), scene, albedo, em,
+                      u_t, P, batch, block, idx, col, ridx);
 }
 
 }  // namespace
@@ -109,10 +129,10 @@ extern "C" int fm_trace_deposits_wide_rng(
     int max_depth, int num_texels, float eps, float two_pi, float rr,
     float mirror_z, float tint_z, float tint_r, float tint_g, float tint_b,
     float albedo, void* stream) {
-  return launch_stream<false>(scene, em, nullptr, idx, col, batch, block,
-                              n_rects, g0, g1, g2, seed, n_valid, max_depth,
-                              num_texels, eps, two_pi, rr, mirror_z, tint_z,
-                              tint_r, tint_g, tint_b, albedo, stream);
+  return launch_stream<false, false>(
+      scene, nullptr, em, nullptr, idx, col, nullptr, batch, block, n_rects,
+      g0, g1, g2, seed, n_valid, max_depth, num_texels, eps, two_pi, rr,
+      mirror_z, tint_z, tint_r, tint_g, tint_b, albedo, stream);
 }
 
 // `u_t` is the [U, batch] f32 transpose of the batch's uniforms.
@@ -122,8 +142,24 @@ extern "C" int fm_trace_deposits_wide(
     int seed, int n_valid, int max_depth, int num_texels, float eps,
     float two_pi, float rr, float mirror_z, float tint_z, float tint_r,
     float tint_g, float tint_b, float albedo, void* stream) {
-  return launch_stream<true>(scene, em, u_t, idx, col, batch, block, n_rects,
-                             g0, g1, g2, seed, n_valid, max_depth, num_texels,
-                             eps, two_pi, rr, mirror_z, tint_z, tint_r,
-                             tint_g, tint_b, albedo, stream);
+  return launch_stream<true, false>(
+      scene, nullptr, em, u_t, idx, col, nullptr, batch, block, n_rects, g0,
+      g1, g2, seed, n_valid, max_depth, num_texels, eps, two_pi, rr,
+      mirror_z, tint_z, tint_r, tint_g, tint_b, albedo, stream);
+}
+
+// The diff stream: `albedo` is the [n_rects] per-slot albedo, `u_t` the
+// [U, batch] uniforms; ridx [batch * max_depth] int32 gets each row's
+// diffuse-hit slot (-1 where there is none).
+extern "C" int fm_trace_deposits_wide_diff(
+    const float* scene, const float* albedo, const float* em,
+    const float* u_t, int* idx, float* col, int* ridx, int batch, int block,
+    int n_rects, int g0, int g1, int g2, int seed, int n_valid,
+    int max_depth, int num_texels, float eps, float two_pi, float rr,
+    float mirror_z, float tint_z, float tint_r, float tint_g, float tint_b,
+    float albedo_const, void* stream) {
+  return launch_stream<true, true>(
+      scene, albedo, em, u_t, idx, col, ridx, batch, block, n_rects, g0, g1,
+      g2, seed, n_valid, max_depth, num_texels, eps, two_pi, rr, mirror_z,
+      tint_z, tint_r, tint_g, tint_b, albedo_const, stream);
 }

@@ -2,10 +2,15 @@
 // trajectories and folds the lightmap cotangent g into per-slot albedo
 // cotangents and the batch's <g, lightmap> total, without a deposit stream.
 //
-// Replaces the TPU kernel flatmatch_tpu/engines/photon_pallas_wide.py
-// trace_fold_wide_rng (:1394, pallas_call :1428; body _make_kernel :105-733
-// with diff=True, rng=True, fold=True; fold docs :138-157, body :588-629
-// and :652-685). Per photon p and live bounce d it computes
+// Replaces two TPU kernels of flatmatch_tpu/engines/photon_pallas_wide.py
+// (body _make_kernel :105-733 with diff=True, fold=True; fold docs
+// :138-157, body :588-629 and :652-685):
+//   - trace_fold_wide_rng (:1394, pallas_call :1428): the counter-hash
+//     draws (HashDraw), the backward of the device-RNG fit;
+//   - trace_fold_wide (:1326, pallas_call :1362): the draws read from the
+//     batch's transposed [U, B] threefry uniforms (UniformDraw), the
+//     backward of `fit --no-device-rng` at every in-kernel splat.
+// Per photon p and live bounce d it computes
 //   w(p, d) = <bf16(g)[texel(p, d)], deposit color(p, d)>   (channels r, g, b)
 //   S(p, k) = sum_{d >= k} w(p, d)                           (inclusive suffix)
 // and returns da[j] = sum of S(p, k) over the diffuse hits (p, k) on rect
@@ -13,7 +18,8 @@
 //
 // Design:
 //   - the trace is trace_wide.cuh (kDiff = true), so the trajectories and
-//     colors are the forward kernel's; a photon that misses stops, and its
+//     colors are the forward kernel's (same draws, same instance of the
+//     trace); a photon that misses stops, and its
 //     later bounces keep w = 0 and slot -1, which is what the TPU kernel's
 //     zero colors give;
 //   - g is gathered straight from device memory (the [T, 3] cotangent stays
@@ -29,7 +35,12 @@
 //     [N + 1, blocks] with w_sum's block total in row N, and a second small
 //     kernel adds each row over the blocks in a fixed order (one warp per
 //     row, lane-strided, then a shuffle tree). The order of every sum is
-//     fixed, so two runs give the same bits.
+//     fixed, so two runs give the same bits;
+//   - the per-warp rows take 32 bytes per rect. The table and albedo row
+//     (56 bytes per rect) go beside them while all fit, and stay in device
+//     memory past that (launch_table, trace_wide.cuh), so the fold takes
+//     scenes up to (232448 - 8 * max_depth * 256) / 32 rects: 6,752 at
+//     max_depth 8. The wrapper refuses larger ones.
 //
 // What bounds it on an H100: the replayed trace, as in the forward kernel
 // (the instruction rate of the rect loop). The gather reads 12 bytes per
@@ -39,6 +50,8 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false (see
 // flatmatch_tpu_torch/utils/cuda_build.py).
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "trace_wide.cuh"
 
@@ -51,22 +64,33 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// kSmem: the scene table and albedo row in shared memory, else read from
+// device memory; u_t and batch are read only by the UniformDraw instance
+template <class Draw, bool kSmem>
 __global__ void __launch_bounds__(kThreads)
 trace_fold_kernel(const float* __restrict__ scene,
                   const float* __restrict__ albedo,
                   const float* __restrict__ em, const float* __restrict__ g,
-                  const Params P, float* __restrict__ part) {
+                  const float* __restrict__ u_t, int batch, const Params P,
+                  float* __restrict__ part) {
   const int N = P.n_rects;
   const int D = P.max_depth;
   const int t = threadIdx.x;
   extern __shared__ float smem[];
-  float* s_scene = smem;                       // [F_AA][N]
-  float* s_alb = s_scene + F_AA * N;           // [N]
-  float* s_acc = s_alb + N;                    // [kWarps][N] per-warp sums
+  const float* tab = scene;
+  const float* alb = albedo;
+  float* s_acc = smem;                         // [kWarps][N] per-warp sums
+  if constexpr (kSmem) {
+    float* s_scene = smem;                     // [F_AA][N]
+    float* s_alb = s_scene + F_AA * N;         // [N]
+    stage(s_scene, scene, F_AA * N);
+    stage(s_alb, albedo, N);
+    tab = s_scene;
+    alb = s_alb;
+    s_acc = s_alb + N;
+  }
   float* s_w = s_acc + kWarps * N;             // [D][kThreads]: w, then S
   int* s_slot = reinterpret_cast<int*>(s_w + D * kThreads);  // [D][kThreads]
-  stage(s_scene, scene, F_AA * N);
-  stage(s_alb, albedo, N);
   for (int i = t; i < kWarps * N; i += kThreads) s_acc[i] = 0.0f;
   for (int d = 0; d < D; ++d) {
     s_w[d * kThreads + t] = 0.0f;
@@ -77,8 +101,15 @@ trace_fold_kernel(const float* __restrict__ scene,
   const int pi = blockIdx.x * kThreads + t;
   if (pi < P.n_valid) {
     const uint32_t p = static_cast<uint32_t>(pi);
+    const Draw draws = [&] {
+      if constexpr (std::is_same_v<Draw, HashDraw>) {
+        return HashDraw{p, P.seed};
+      } else {
+        return UniformDraw{u_t, batch, pi};
+      }
+    }();
     trace_photon<true>(
-        s_scene, s_alb, em, P, HashDraw{p, P.seed},
+        tab, alb, em, P, draws,
         [&](int d, int btex, float cr, float cg, float cb, int slot) {
           float w = 0.0f;
           if (static_cast<unsigned>(btex) <
@@ -148,45 +179,63 @@ fold_sum_kernel(const float* __restrict__ part, int rows, int nb,
   if (lane == 0) out[r] = sum;
 }
 
-// Bytes of dynamic shared memory the fold kernel needs (the wrapper in
-// engines/photon_wide.py checks the same sum against the card's limit).
-size_t fold_smem(int n_rects, int max_depth) {
-  return sizeof(float) * ((F_AA + 1 + kWarps) * static_cast<size_t>(n_rects) +
-                          2 * static_cast<size_t>(max_depth) * kThreads);
+// Replay one batch: the fold kernel, then the fixed-order sum over blocks.
+template <class Draw>
+int run_fold(const float* scene, const float* albedo, const float* em,
+             const float* g, const float* u_t, int batch, float* part,
+             float* out, const Params& P, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = P.n_rects + 1;
+  const int nb = P.n_valid > 0 ? (P.n_valid + kThreads - 1) / kThreads : 0;
+  if (nb > 0) {
+    // the per-warp rows and the [D][kThreads] w and slot buffers; the
+    // wrapper in engines/photon_wide.py checks the same sum
+    const size_t buffers =
+        sizeof(float) * (kWarps * static_cast<size_t>(P.n_rects) +
+                         2 * static_cast<size_t>(P.max_depth) * kThreads);
+    const int rc = launch_table(
+        trace_fold_kernel<Draw, true>, trace_fold_kernel<Draw, false>,
+        sizeof(float) * (F_AA + 1) * static_cast<size_t>(P.n_rects), buffers,
+        0, nb, kThreads, st, scene, albedo, em, g, u_t, batch, P, part);
+    if (rc != 0) return rc;
+  }
+  // with no live photon every row sums to 0
+  fold_sum_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+      part, rows, nb, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C entry point, loaded with ctypes. Replays one batch on `stream`: `part`
-// is scratch of (n_rects + 1) * ceil(n_valid / 256) floats, `out` receives
-// the n_rects slot sums and then w_sum. Returns the CUDA error code of the
-// launches (0 on success).
+// C entry points, loaded with ctypes. Each replays one batch on `stream`:
+// `part` is scratch of (n_rects + 1) * ceil(n_valid / 256) floats, `out`
+// receives the n_rects slot sums and then w_sum. Returns the CUDA error
+// code of the launches (0 on success).
 extern "C" int fm_trace_fold_wide_rng(
     const float* scene, const float* albedo, const float* em,
     const float* g, float* part, float* out, int n_rects, int g0, int g1,
     int g2, int seed, int n_valid, int max_depth, int num_texels, float eps,
     float two_pi, float rr, float mirror_z, float tint_z, float tint_r,
     float tint_g, float tint_b, float albedo_const, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = n_rects + 1;
-  const int nb = n_valid > 0 ? (n_valid + kThreads - 1) / kThreads : 0;
-  if (nb > 0) {
-    const Params P = make_params(n_rects, g0, g1, g2, seed, n_valid,
-                                 max_depth, num_texels, eps, two_pi, rr,
-                                 mirror_z, tint_z, tint_r, tint_g, tint_b,
-                                 albedo_const, 0.0f);
-    const size_t smem = fold_smem(n_rects, max_depth);
-    cudaError_t err = cudaFuncSetAttribute(
-        trace_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    trace_fold_kernel<<<nb, kThreads, smem, st>>>(scene, albedo, em, g, P,
-                                                  part);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  // with no live photon every row sums to 0
-  fold_sum_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      part, rows, nb, out);
-  return static_cast<int>(cudaGetLastError());
+  const Params P = make_params(n_rects, g0, g1, g2, seed, n_valid, max_depth,
+                               num_texels, eps, two_pi, rr, mirror_z, tint_z,
+                               tint_r, tint_g, tint_b, albedo_const, 0.0f);
+  return run_fold<HashDraw>(scene, albedo, em, g, nullptr, 0, part, out, P,
+                            stream);
+}
+
+// `u_t` is the [4 + 3 * max_depth, batch] f32 transpose of the batch's
+// uniforms; the seed is unused.
+extern "C" int fm_trace_fold_wide(
+    const float* scene, const float* albedo, const float* em,
+    const float* g, const float* u_t, float* part, float* out, int batch,
+    int n_rects, int g0, int g1, int g2, int seed, int n_valid,
+    int max_depth, int num_texels, float eps, float two_pi, float rr,
+    float mirror_z, float tint_z, float tint_r, float tint_g, float tint_b,
+    float albedo_const, void* stream) {
+  const Params P = make_params(n_rects, g0, g1, g2, seed, n_valid, max_depth,
+                               num_texels, eps, two_pi, rr, mirror_z, tint_z,
+                               tint_r, tint_g, tint_b, albedo_const, 0.0f);
+  return run_fold<UniformDraw>(scene, albedo, em, g, u_t, batch, part, out,
+                               P, stream);
 }

@@ -40,16 +40,22 @@
 
 namespace {
 
-// acc is int* (kF32 = false) or the unsigned view of the int64 accumulator
-template <class Draw, bool kF32>
+// acc is int* (kF32 = false) or the unsigned view of the int64 accumulator;
+// kSmem: the scene table in shared memory, else read from device memory
+// (launch_table, trace_wide.cuh)
+template <class Draw, bool kF32, bool kSmem>
 __global__ void __launch_bounds__(kThreads)
 trace_splat_wide_kernel(const float* __restrict__ scene,
                         const float* __restrict__ em,
                         const float* __restrict__ u_t, int batch,
                         float to_fixed, const Params P, void* acc) {
   extern __shared__ float s_scene[];  // [F_AA][N]
-  stage(s_scene, scene, F_AA * P.n_rects);
-  __syncthreads();
+  const float* tab = scene;
+  if constexpr (kSmem) {
+    stage(s_scene, scene, F_AA * P.n_rects);
+    __syncthreads();
+    tab = s_scene;
+  }
 
   const int pi = blockIdx.x * blockDim.x + threadIdx.x;
   // dead photons deposit exactly 0 and are not traced
@@ -63,7 +69,7 @@ trace_splat_wide_kernel(const float* __restrict__ scene,
     }
   }();
   trace_photon<false>(
-      s_scene, nullptr, em, P, draws,
+      tab, nullptr, em, P, draws,
       [&](int d, int btex, float cr, float cg, float cb, int) {
         if constexpr (kF32) {
           splat_f32(static_cast<unsigned long long*>(acc), P, to_fixed, btex,
@@ -80,15 +86,11 @@ int launch_trace(const float* scene, const float* em, const float* u_t,
                  int batch, float to_fixed, const Params& P, void* acc,
                  cudaStream_t s) {
   if (P.n_valid <= 0) return 0;
-  const size_t smem = sizeof(float) * F_AA * static_cast<size_t>(P.n_rects);
-  cudaError_t err = cudaFuncSetAttribute(
-      trace_splat_wide_kernel<Draw, kF32>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  trace_splat_wide_kernel<Draw, kF32>
-      <<<blocks_for(P.n_valid), kThreads, smem, s>>>(scene, em, u_t, batch,
-                                                     to_fixed, P, acc);
-  return static_cast<int>(cudaGetLastError());
+  return launch_table(trace_splat_wide_kernel<Draw, kF32, true>,
+                      trace_splat_wide_kernel<Draw, kF32, false>,
+                      sizeof(float) * F_AA * static_cast<size_t>(P.n_rects),
+                      0, 0, blocks_for(P.n_valid), kThreads, s, scene, em, u_t,
+                      batch, to_fixed, P, acc);
 }
 
 // The f32 tiers: zero the int64 scratch, trace and splat, convert to `out`.

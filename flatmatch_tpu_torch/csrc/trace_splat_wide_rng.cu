@@ -9,7 +9,9 @@
 //     the TPU kernel's rgid/gid. Draws and dither keys depend only on p, the
 //     batch seed and the draw column, so the block shape changes no result;
 //   - each block stages the [13, N] scene table in shared memory (dynamic
-//     above 48 KB); every rect read in the loop is a warp-uniform broadcast;
+//     above 48 KB); every rect read in the loop is a warp-uniform broadcast.
+//     A table past a block's shared memory is read from device memory
+//     instead (launch_table, trace_wide.cuh);
 //   - deposits go by atomicAdd into an int32 [T, 3] accumulator in device
 //     memory instead of the TPU's int8 one-hot MXU binning. Integer sums do
 //     not depend on order, so two runs are bit-identical.
@@ -30,20 +32,27 @@
 
 namespace {
 
+// kSmem: the scene table in shared memory, else read from device memory
+// (launch_table, trace_wide.cuh)
+template <bool kSmem>
 __global__ void __launch_bounds__(kThreads)
 trace_splat_kernel(const float* __restrict__ scene,
                    const float* __restrict__ em, const Params P,
                    int* __restrict__ acc) {
   extern __shared__ float s_scene[];  // [F_AA][N]
-  stage(s_scene, scene, F_AA * P.n_rects);
-  __syncthreads();
+  const float* tab = scene;
+  if constexpr (kSmem) {
+    stage(s_scene, scene, F_AA * P.n_rects);
+    __syncthreads();
+    tab = s_scene;
+  }
 
   const int pi = blockIdx.x * blockDim.x + threadIdx.x;
   // photons at or past n_valid are dead from the start and deposit exactly
   // 0 (floor(0 * inv_s + dither) == 0), so they are not traced
   if (pi >= P.n_valid) return;
   const uint32_t p = static_cast<uint32_t>(pi);
-  trace_photon<false>(s_scene, nullptr, em, P, HashDraw{p, P.seed},
+  trace_photon<false>(tab, nullptr, em, P, HashDraw{p, P.seed},
                       [&](int d, int btex, float cr, float cg, float cb,
                           int) {
                         splat_i8(acc, P, P.inv_s, p, d, btex, cr, cg, cb);
@@ -66,14 +75,8 @@ extern "C" int fm_trace_splat_wide_rng_i8(
                                max_depth, num_texels, eps, two_pi, rr,
                                mirror_z, tint_z, tint_r, tint_g, tint_b,
                                albedo, inv_s);
-  const size_t smem = sizeof(float) * F_AA * static_cast<size_t>(n_rects);
-  cudaError_t err = cudaFuncSetAttribute(
-      trace_splat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n_valid + kThreads - 1) / kThreads;
-  trace_splat_kernel<<<blocks, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(scene, em, P,
-                                                            acc);
-  return static_cast<int>(cudaGetLastError());
+  return launch_table(trace_splat_kernel<true>, trace_splat_kernel<false>,
+                      sizeof(float) * F_AA * static_cast<size_t>(n_rects), 0, 0,
+                      blocks_for(n_valid), kThreads,
+                      static_cast<cudaStream_t>(stream), scene, em, P, acc);
 }

@@ -187,6 +187,39 @@ __device__ __forceinline__ void splat_f32(unsigned long long* acc,
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+// Dynamic shared memory a block may use on sm_90 (227 KB).
+constexpr size_t kSmemLimit = 232448;
+
+// Where the kernels keep the [F_AA][N] scene table (and the diff kernels'
+// [N] albedo row): with kSmem each block stages it in shared memory, so
+// every rect read of the loop is a shared-memory broadcast; without, the
+// loop reads it from device memory, where it stays in L1 and L2 (a table
+// of 4,563 rects is 237 KB). The flag is a template argument, so the
+// shared-memory instance compiles to the same loads as a kernel with no
+// such choice. launch_table picks the shared-memory instance whenever the
+// table fits beside the kernel's other shared buffers (`buffer_bytes` of
+// dynamic shared memory after the table, `static_bytes` declared in the
+// kernel), and the global instance only past that: the JAX package, which
+// keeps the table in VMEM, has no cap on a scene's rect count, and the
+// port has none either.
+template <class Kernel, class... Args>
+int launch_table(Kernel k_smem, Kernel k_global, size_t table_bytes,
+                 size_t buffer_bytes, size_t static_bytes, int blocks,
+                 int threads, cudaStream_t s, Args... args) {
+  const bool in_smem =
+      table_bytes + buffer_bytes + static_bytes <= kSmemLimit;
+  const Kernel k = in_smem ? k_smem : k_global;
+  const size_t smem = (in_smem ? table_bytes : 0) + buffer_bytes;
+  if (smem + static_bytes > kSmemLimit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k<<<blocks, threads, smem, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // out[i] = f32(acc[i]) * 2^-k: one rounding to f32, then an exact power-of-
 // two scaling. from_fixed = 2^-k, read from the device when from_ptr is set
 // (the diff tier's run-time grid).

@@ -1,17 +1,26 @@
 """Differentiable photon rendering: gradients with respect to per-rect albedo
 and per-emitter power, on the wide kernels.
 
-Counterpart of flatmatch_tpu/diff/render.py, its in-kernel tiers
-(`make_diff_renderer_wide` at the device RNG: the 7-bit splat for
-`inkernel_i8` and `fused_i8`, bf16 colors summed in f32 for `inkernel` and
-`fused`, as the JAX renderer maps them, diff/render.py:364-366). Photon
-trajectories depend only on the draws and the geometry, never on
+Counterpart of flatmatch_tpu/diff/render.py `make_diff_renderer_wide`, every
+tier of it (diff/render.py:363-500):
+- the in-kernel tiers: the 7-bit splat for `inkernel_i8` and `fused_i8`,
+  bf16 colors summed in f32 for `inkernel` and `fused` (as the JAX renderer
+  maps them, :364-366), with the counter-hash draws (`device_rng`) or the
+  threefry draws; the forward splats inside the trace kernel, the backward
+  replays each batch and folds the cotangent inside the kernel;
+- the deposit-stream tier (`scatter`, `bucket`, `bucket_exact`), which
+  draws threefry under either `device_rng` setting, as JAX does (:366):
+  the forward traces the diff stream and splats it (f32 colors, or bf16
+  for `bucket`), the backward traces it again and folds it in torch ops
+  with the unrounded f32 cotangent (`stream_fold`, JAX's XLA fold
+  :488-500).
+Photon trajectories depend only on the draws and the geometry, never on
 albedo or power, and every deposit is
 
     deposit(d) = power[e] * base_color * prod_{diffuse hits k<=d} albedo[r_k] * tint_k
 
 so the backward saves only the parameters and replays each batch from its
-seed (`trace_fold_wide_rng`), folding the lightmap cotangent g:
+seed or its uniforms, folding the lightmap cotangent g:
 
     w(p, d)     = <g[texel(p, d)], deposit(p, d)>
     S(p, k)     = sum_{d>=k} w(p, d)
@@ -27,12 +36,14 @@ import torch
 
 from ..config import PhotonConfig
 from ..engines import photon_wide as pw
-from ..ops import rng
+from ..ops import rng, threefry
 from ..ops.aa_scene import AARects
 from ..ops.device_scene import Emitters
-from ..ops.splat import fixed_point_scale, stream_bound
+from ..ops.splat import fixed_point_scale, fused_splat, stream_bound
 
 IN_KERNEL_TIERS = ("inkernel", "inkernel_i8", "fused", "fused_i8")
+STREAM_TIERS = ("scatter", "bucket", "bucket_exact")
+DIFF_SUBLANES = 32     # make_diff_renderer_wide's default block height
 
 
 def _integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
@@ -87,16 +98,22 @@ def fixed_pair(cfg: PhotonConfig, power_e: torch.Tensor,
     return fixed_point_scale(bound, grid_corr(cfg, power_e, albedo_aa))
 
 
+def stream_total_bound(cfg: PhotonConfig, power_e: torch.Tensor,
+                       albedo_aa: torch.Tensor, batch_size: int) -> float:
+    """The stream tier's splat bound of one emitter, a host float for
+    `fused_splat`: the stream bound of `batch_size`-photon batches times
+    `grid_corr`, read from the parameters' device once. Its fixed-point
+    scale is `fixed_pair`'s (the product is taken in float64 both ways)."""
+    bound = stream_bound(dataclasses.replace(cfg,
+                                             photons_per_batch=batch_size))
+    return bound * float(grid_corr(cfg, power_e, albedo_aa))
+
+
 def check_diff_cfg(cfg: PhotonConfig):
-    """Refuse the tiers of the differentiable renderer the port does not
-    run yet: the diff deposit stream (`scatter`, `bucket`, `bucket_exact`)
-    and the threefry draws (device_rng=False)."""
-    if cfg.splat not in IN_KERNEL_TIERS:
-        raise pw.unsupported(f"the differentiable renderer with "
-                             f"splat={cfg.splat!r} (its deposit stream)")
-    if not cfg.device_rng:
-        raise pw.unsupported("the differentiable renderer with the threefry "
-                             "draws (device_rng=False)")
+    """Refuse a configuration the differentiable renderer cannot run: an
+    unknown splat mode or a batch under one photon."""
+    if cfg.splat not in IN_KERNEL_TIERS + STREAM_TIERS:
+        raise ValueError(f"unknown splat mode {cfg.splat!r}")
     if int(cfg.photons_per_batch) < 1:
         raise ValueError(f"photons_per_batch must be >= 1, got "
                          f"{cfg.photons_per_batch}")
@@ -110,6 +127,40 @@ def diff_batch_size(cfg: PhotonConfig) -> int:
     return -(-B // pw.LANES) * pw.LANES
 
 
+def diff_block(batch_size: int) -> int:
+    """Photons per block of the diff stream's row order: the JAX renderer's
+    TB = S * 128 with S = 32 halved until TB divides the batch
+    (diff/render.py:371-377). A 131072-photon batch has 4096-photon blocks,
+    not the render stream's 8192 (`photon_wide.stream_block`)."""
+    B = int(batch_size)
+    s = DIFF_SUBLANES
+    while s > 1 and B % (s * pw.LANES):
+        s //= 2
+    return s * pw.LANES
+
+
+def stream_fold(idx: torch.Tensor, col: torch.Tensor, ridx: torch.Tensor,
+                g_c: torch.Tensor, n_slots: int, block: int, depth: int):
+    """The stream tier's backward fold of one batch's diff stream (JAX's
+    XLA fold, diff/render.py:488-500), in torch ops on the stream's device:
+    w = sum_ch g_c[idx] * col with the unrounded f32 cotangent (unlike
+    `photon_wide.fold_plain`, which rounds g to bf16 as the in-kernel fold
+    does), inclusive suffix sums over the `depth` bounces of the row
+    order's [blocks, depth, block] view, da[ridx] += S at ridx >= 0, and
+    w_sum = sum w. The per-slot sums are a stable sort by slot and a
+    segment sum, a fixed order (index_add_ on CUDA floats is not), so two
+    runs give the same bits. Returns (da_slots [n_slots], w_sum),
+    undivided."""
+    w = torch.sum(g_c[idx.to(torch.int64)] * col, dim=-1)
+    w3 = w.reshape(-1, int(depth), int(block))
+    suf = torch.flip(torch.cumsum(torch.flip(w3, [1]), 1), [1]).reshape(-1)
+    hit = ridx >= 0
+    slots, order = torch.sort(ridx[hit], stable=True)
+    lengths = torch.bincount(slots, minlength=int(n_slots))
+    da = torch.segment_reduce(suf[hit][order], "sum", lengths=lengths)
+    return da, w.sum()
+
+
 class WideDiffRenderer:
     """render(albedo [N_rects], power [N_emitters]) -> arena lightmap
     [num_texels, 3], differentiable in both (make_diff_renderer_wide).
@@ -121,9 +172,14 @@ class WideDiffRenderer:
         check_diff_cfg(cfg)
         self.cfg = cfg
         self.B = diff_batch_size(cfg)
-        self.i8 = cfg.splat.endswith("_i8")
+        self.stream = cfg.splat in STREAM_TIERS
+        # the stream tier draws threefry only (diff/render.py:366)
+        self.device_rng = bool(cfg.device_rng) and not self.stream
+        self.i8 = not self.stream and cfg.splat.endswith("_i8")
         if self.i8:
             pw.check_i8_accumulator(cfg, self.B)
+        self.block = diff_block(self.B)
+        self.U = pw.uniforms_per_photon(cfg.max_depth)
         self.aa_c, self.total_c, self.expand = pw.compact_aa(aa, num_texels)
         dev = aa.fields.device
         self.device = dev
@@ -133,8 +189,12 @@ class WideDiffRenderer:
         self.arena_pos = torch.from_numpy(
             pw.compact_arena_positions(aa)).to(dev)
         self.schedule = pw.emitter_schedule(emitters.counts, self.B)
-        self.batches = list(pw.schedule_batches(self.schedule, self.B,
-                                                tail_shrink))
+        # a shrunk tail batch keeps whole diff blocks on the stream tier, so
+        # its stream is the first rows of the full batch's; threefry draws
+        # the first rows of the full batch's uniforms (ops/threefry.py)
+        self.batches = list(pw.schedule_batches(
+            self.schedule, self.B, tail_shrink,
+            self.block if self.stream else pw.THREADS))
         self.em_base = {e: pw.emitter_vector(emitters, e)
                         for e, *_ in self.schedule}
 
@@ -145,10 +205,44 @@ class WideDiffRenderer:
         v[12:15] = v[12:15] * power[e]
         return v
 
+    def emitter_grid(self, e: int, power: torch.Tensor,
+                     albedo_aa: torch.Tensor):
+        """Emitter e's scaled vector and the forward's run-time grid: the
+        7-bit tiers' (scale, inv_scale), the f32 tier's fixed-point
+        (2^k, 2^-k) for the deposit bound times `grid_corr`, or that bound
+        itself on the host for the stream tier's splat."""
+        if self.stream:
+            grid = stream_total_bound(self.cfg, power[e], albedo_aa, self.B)
+        elif self.i8:
+            grid = scale_pair(self.cfg, power[e], albedo_aa)
+        else:
+            grid = fixed_pair(self.cfg, power[e], albedo_aa, self.B)
+        return self.em_vec(e, power), grid
+
+    def draws(self, gb: int, bsz: int) -> torch.Tensor:
+        """Global batch gb's threefry uniforms, transposed to [U, bsz]."""
+        return threefry.batch_uniforms(self.cfg.seed, gb, bsz, self.U,
+                                       self.device, transposed=True)
+
+    def live_rows(self, n_valid: int) -> int:
+        """Stream rows of the diff blocks that hold live photons: the rows
+        after them are zero deposits with no slot, so both passes stop
+        there, and a batch gives the same bits at any tail size."""
+        return -(-int(n_valid) // self.block) * self.block * \
+            int(self.cfg.max_depth)
+
+    def trace_stream(self, albedo_aa, ev, gb, nv, bsz):
+        """The diff stream of one batch, cut to its live rows."""
+        idx, col, ridx = pw.trace_deposits_wide_diff(
+            self.aa_c.fields, self.aa_c.group_counts, albedo_aa, ev,
+            self.draws(gb, bsz), nv, self.cfg, self.block, transposed=True)
+        rows = self.live_rows(nv)
+        return idx[:rows], col[:rows], ridx[:rows]
+
     def forward_loop(self, albedo, power) -> torch.Tensor:
-        """The forward of every batch on the tier's kernel: the 7-bit
-        accumulator de-scaled on the emitter's grid, or the f32 increment
-        added."""
+        """The forward of every batch on the tier's kernels: the 7-bit
+        accumulator de-scaled on the emitter's grid, the f32 increment
+        added, or the diff stream splatted at the emitter's scale."""
         cfg, fields = self.cfg, self.aa_c.fields
         gc = self.aa_c.group_counts
         albedo_aa = albedo[self.perm].contiguous()
@@ -156,24 +250,35 @@ class WideDiffRenderer:
                          device=self.device)
         acc = torch.empty((self.total_c, 3), dtype=torch.int32,
                           device=self.device)
-        grid = {}
+        grids = {}
         for e, gb, nv, bsz in self.batches:
-            if e not in grid:
-                grid[e] = (self.em_vec(e, power),
-                           scale_pair(cfg, power[e], albedo_aa) if self.i8
-                           else fixed_pair(cfg, power[e], albedo_aa, self.B))
-            ev, g = grid[e]
-            seed = rng.batch_seed(cfg.seed, gb)
-            if self.i8:
-                scale, inv_scale = g
-                pw.trace_splat_wide_diff_rng_i8(
-                    fields, gc, albedo_aa, ev, seed, nv, bsz, cfg,
-                    self.total_c, inv_scale, out=acc)
-                lm += acc.to(torch.float32) * scale
+            if e not in grids:
+                grids[e] = self.emitter_grid(e, power, albedo_aa)
+            ev, g = grids[e]
+            if self.stream:
+                idx, col, _ = self.trace_stream(albedo_aa, ev, gb, nv, bsz)
+                lm += fused_splat(idx, col, self.total_c, g,
+                                  bf16=cfg.splat == "bucket")
+            elif self.device_rng:
+                seed = rng.batch_seed(cfg.seed, gb)
+                if self.i8:
+                    pw.trace_splat_wide_diff_rng_i8(
+                        fields, gc, albedo_aa, ev, seed, nv, bsz, cfg,
+                        self.total_c, g[1], out=acc)
+                    lm += acc.to(torch.float32) * g[0]
+                else:
+                    lm += pw.trace_splat_wide_diff_rng_f32(
+                        fields, gc, albedo_aa, ev, seed, nv, bsz, cfg,
+                        self.total_c, g)
+            elif self.i8:
+                pw.trace_splat_wide_diff_i8(
+                    fields, gc, albedo_aa, ev, self.draws(gb, bsz), nv, cfg,
+                    self.total_c, g[1], out=acc, transposed=True)
+                lm += acc.to(torch.float32) * g[0]
             else:
-                lm += pw.trace_splat_wide_diff_rng_f32(
-                    fields, gc, albedo_aa, ev, seed, nv, bsz, cfg,
-                    self.total_c, g)
+                lm += pw.trace_splat_wide_diff_f32(
+                    fields, gc, albedo_aa, ev, self.draws(gb, bsz), nv, cfg,
+                    self.total_c, g, transposed=True)
         return self.expand(lm)
 
     def backward_replay(self, albedo, power, g):
@@ -189,9 +294,19 @@ class WideDiffRenderer:
                 evs[e] = self.em_vec(e, power)
                 dpe[e] = torch.zeros((), dtype=torch.float32,
                                      device=self.device)
-            da_b, w_sum = pw.trace_fold_wide_rng(
-                fields, gc, albedo_aa, evs[e], g_c,
-                rng.batch_seed(cfg.seed, gb), nv, bsz, cfg, self.n_slots)
+            if self.stream:
+                idx, col, ridx = self.trace_stream(albedo_aa, evs[e], gb, nv,
+                                                   bsz)
+                da_b, w_sum = stream_fold(idx, col, ridx, g_c, self.n_slots,
+                                          self.block, cfg.max_depth)
+            elif self.device_rng:
+                da_b, w_sum = pw.trace_fold_wide_rng(
+                    fields, gc, albedo_aa, evs[e], g_c,
+                    rng.batch_seed(cfg.seed, gb), nv, bsz, cfg, self.n_slots)
+            else:
+                da_b, w_sum = pw.trace_fold_wide(
+                    fields, gc, albedo_aa, evs[e], g_c, self.draws(gb, bsz),
+                    nv, cfg, self.n_slots, transposed=True)
             da_slots = da_slots + da_b
             dpe[e] = dpe[e] + w_sum
         d_power = torch.zeros_like(power)
@@ -231,11 +346,17 @@ def make_diff_renderer_wide(emitters: Emitters, num_texels: int,
                             cfg: PhotonConfig, aa: AARects,
                             tail_shrink: bool = True) -> WideDiffRenderer:
     """Differentiable renderer on the wide kernels
-    (flatmatch_tpu.diff.render.make_diff_renderer_wide at the device RNG
-    and an in-kernel splat). Forward: `trace_splat_wide_diff_rng_i8` per
-    batch, de-scaled on each emitter's dynamic grid (`inkernel_i8`,
-    `fused_i8`), or `trace_splat_wide_diff_rng_f32` (`inkernel`, `fused`).
-    Backward, the same for every tier: replays every batch with
-    `trace_fold_wide_rng`, which folds exact f32 colors. `tail_shrink` runs
-    each emitter's last batch on a smaller grid, bit-identically."""
+    (flatmatch_tpu.diff.render.make_diff_renderer_wide), by tier:
+    - `inkernel_i8`, `fused_i8`: forward `trace_splat_wide_diff_rng_i8`
+      (device RNG) or `trace_splat_wide_diff_i8` (threefry) per batch,
+      de-scaled on each emitter's dynamic grid;
+    - `inkernel`, `fused`: `trace_splat_wide_diff_rng_f32` or
+      `trace_splat_wide_diff_f32`;
+    - `scatter`, `bucket`, `bucket_exact` (threefry only):
+      `trace_deposits_wide_diff`, then the stream splat.
+    Backward: the in-kernel tiers replay every batch with
+    `trace_fold_wide_rng` or `trace_fold_wide`, which fold exact f32 colors
+    against g rounded to bf16; the stream tier traces the stream again and
+    folds it with `stream_fold`. `tail_shrink` runs each emitter's last
+    batch on a smaller grid, bit-identically."""
     return WideDiffRenderer(emitters, num_texels, cfg, aa, tail_shrink)

@@ -22,11 +22,11 @@ from ..config import AoConfig
 from ..ops.aa_query import (
     check_on, check_table, nearest_distances, nearest_distances_plain,
 )
-from ..ops.aa_scene import F_AA, AARects
+from ..ops.aa_scene import AARects
 from ..ops.geosphere import geosphere
 from ..scene.geometry import Scene
 from ..scene.rectangle import Rect, num_tiles
-from ..utils.cuda_build import check_smem, launch
+from ..utils.cuda_build import launch
 
 f32 = np.float32
 NUDGE = float(f32(1e-5))       # ray origins start 1e-5 along the direction
@@ -184,7 +184,6 @@ def ao_fused(fields: torch.Tensor, group_counts, centers: torch.Tensor,
     if dev.type == "cpu":
         return ao_fused_plain(fields, group_counts, centers, wall_ids, dirs,
                               fac, sky)
-    check_smem("ao_fused", 4 * (F_AA * n + K_BLOCK), n)
     sums = torch.empty((T,), dtype=torch.float32, device=dev)
     launch("fm_ao_fused", dev, fields.data_ptr(), centers.data_ptr(),
            wall_ids.data_ptr(), dirs.data_ptr(), fac.data_ptr(),

@@ -24,18 +24,31 @@ batch:
   (`--splat fused`, `fused_i8`, `scatter`, `bucket`, `bucket_exact`).
 - `trace_splat_wide_diff_rng_i8` and `trace_splat_wide_diff_rng_f32`
   (`csrc/trace_splat_wide_diff_rng.cu`): the forward of the differentiable
-  render, with a per-slot albedo and a grid set at run time.
-- `trace_fold_wide_rng` (`csrc/trace_fold_wide_rng.cu`): its backward,
-  which replays the batch and folds the lightmap cotangent into per-slot
-  albedo cotangents and the batch's <g, lightmap> total.
+  render, with a per-slot albedo and a grid set at run time;
+  `trace_splat_wide_diff_i8` and `trace_splat_wide_diff_f32`, the same
+  with threefry uniforms passed in (`fit --no-device-rng`).
+- `trace_fold_wide_rng` and `trace_fold_wide`
+  (`csrc/trace_fold_wide_rng.cu`): its backward, which replays the batch
+  and folds the lightmap cotangent into per-slot albedo cotangents and the
+  batch's <g, lightmap> total, with either draw source.
+- `trace_deposits_wide_diff` (`csrc/trace_deposits_wide.cu`): the diff
+  render's deposit stream, with each row's diffuse-hit slot (`fit --splat
+  scatter|bucket|bucket_exact`).
 
-Each wrapper launches its kernel for CUDA tensors and runs the plain version
-(the plain trace, `trace_deposits_rng_plain` or `trace_deposits_wide_plain`,
-with `splat_i8_plain`, `ops/splat.fused_splat_plain` or `fold_plain`) for
-CPU tensors only.
+The uniforms-in wrappers take the batch's [B, U] uniforms, or with
+`transposed` their [U, B] transpose, the layout their kernels read (which
+`ops/threefry.batch_uniforms(..., transposed=True)` draws directly). Each
+wrapper launches its kernel for CUDA tensors and runs the plain version
+(the plain trace, `trace_deposits_rng_plain`, `trace_uniforms_plain` or
+`trace_deposits_wide_plain`, with `splat_i8_plain`,
+`ops/splat.fused_splat_plain` or `fold_plain`) for CPU tensors only. The
+kernels stage the scene table in shared memory, or read it from device
+memory when it does not fit, so no scene is refused for its rect count;
+only the fold's own shared buffers cap it (`fold_max_rects`).
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -51,7 +64,7 @@ from ..ops.splat import (
     STREAM_MODES, fixed_point_scale, fused_splat_plain, splat_color_scale,
     splat_stream, stream_bound,
 )
-from ..utils.cuda_build import check_smem, launch
+from ..utils.cuda_build import SMEM_LIMIT, check_smem, launch
 
 THREADS = 256                      # photons per CUDA block
 WARPS = THREADS // 32
@@ -64,9 +77,9 @@ INKERNEL_MODES = ("inkernel", "inkernel_i8")
 def unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to flatmatch_tpu_torch yet; the port runs "
-        f"the photon render (every splat, with either draw source), the fit "
-        f"(in-kernel splats, device RNG) and the ambient-occlusion and "
-        f"radiosity engines on axis-aligned scenes (see ROADMAP.md)"
+        f"the photon render and the fit (every splat, with either draw "
+        f"source) and the ambient-occlusion and radiosity engines on "
+        f"axis-aligned scenes (see ROADMAP.md)"
     )
 
 
@@ -264,21 +277,39 @@ def _trace_plain(fields, group_counts, em_vec, n_valid, batch_size, cfg,
     return torch.cat(idx), torch.cat(col), torch.cat(ridx)
 
 
-def stream_rows(idx: torch.Tensor, col: torch.Tensor, block: int):
-    """Photon-major deposits (idx [B, D], col [B, D, 3]) -> the stream
-    (idx [B * D], col [B * D, 3]) in the JAX row order of `stream_block`."""
+def stream_rows(idx: torch.Tensor, col: torch.Tensor, block: int,
+                ridx: torch.Tensor = None):
+    """Photon-major deposits (idx [B, D], col [B, D, 3], and the diff
+    tier's slots ridx [B, D] if given) -> the stream (idx [B * D],
+    col [B * D, 3], ridx [B * D]) in the JAX row order of `stream_block`."""
     B, D = idx.shape
     nb = B // int(block)
-    return (idx.reshape(nb, block, D).permute(0, 2, 1).reshape(-1)
-            .contiguous(),
-            col.reshape(nb, block, D, 3).permute(0, 2, 1, 3).reshape(-1, 3)
-            .contiguous())
+
+    def rows(x):
+        return (x.reshape(nb, block, D, *x.shape[2:]).transpose(1, 2)
+                .reshape(B * D, *x.shape[2:]).contiguous())
+
+    out = (rows(idx), rows(col))
+    return out if ridx is None else out + (rows(ridx),)
 
 
 def uniform_draws(uniforms: torch.Tensor):
     """The draws of `_trace_plain` from a [B, U] uniforms tensor: photon p
     draws its column c from uniforms[p, c]."""
     return lambda pid: lambda c: uniforms[pid, c]
+
+
+def trace_uniforms_plain(
+    fields: torch.Tensor, group_counts, em_vec: torch.Tensor,
+    uniforms: torch.Tensor, n_valid: int, cfg: PhotonConfig,
+    albedo_aa: torch.Tensor = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`trace_deposits_rng_plain` with the draws passed in: photon p draws
+    column c from uniforms[p, c] ([B, U] f32). Returns photon-major (idx
+    [B, D], col [B, D, 3], ridx [B, D])."""
+    return _trace_plain(fields, group_counts, em_vec, n_valid,
+                        uniforms.shape[0], cfg, uniform_draws(uniforms),
+                        albedo_aa)
 
 
 def trace_deposits_wide_plain(
@@ -288,10 +319,21 @@ def trace_deposits_wide_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of `trace_deposits_wide`: the stream of one batch whose
     photon p draws its column c from uniforms[p, c] ([B, U] f32)."""
-    B = uniforms.shape[0]
-    idx, col, _ = _trace_plain(fields, group_counts, em_vec, n_valid, B, cfg,
-                               uniform_draws(uniforms))
-    return stream_rows(idx, col, block or stream_block(B))
+    idx, col, _ = trace_uniforms_plain(fields, group_counts, em_vec,
+                                       uniforms, n_valid, cfg)
+    return stream_rows(idx, col, block or stream_block(uniforms.shape[0]))
+
+
+def trace_deposits_wide_diff_plain(
+    fields: torch.Tensor, group_counts, albedo_aa: torch.Tensor,
+    em_vec: torch.Tensor, uniforms: torch.Tensor, n_valid: int,
+    cfg: PhotonConfig, block: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of `trace_deposits_wide_diff`: the diff stream (idx,
+    col, ridx) of one batch in the row order of `block`."""
+    idx, col, ridx = trace_uniforms_plain(fields, group_counts, em_vec,
+                                          uniforms, n_valid, cfg, albedo_aa)
+    return stream_rows(idx, col, block, ridx)
 
 
 def splat_i8_plain(idx: torch.Tensor, col: torch.Tensor, num_texels: int,
@@ -341,9 +383,8 @@ def trace_splat_wide_plain(
 ) -> torch.Tensor:
     """Plain version of `trace_splat_wide_i8` (the int32 accumulator, into
     `out` if given) and `trace_splat_wide_f32` (the f32 increment)."""
-    idx, col, _ = _trace_plain(fields, group_counts, em_vec, n_valid,
-                               uniforms.shape[0], cfg,
-                               uniform_draws(uniforms))
+    idx, col, _ = trace_uniforms_plain(fields, group_counts, em_vec,
+                                       uniforms, n_valid, cfg)
     if i8:
         inv_s = float(np.float32(1.0 / splat_color_scale(cfg)))
         return splat_i8_plain(idx, col, num_texels, inv_s, out)
@@ -406,17 +447,30 @@ def _check_albedo(albedo_aa, n):
                          f"{tuple(albedo_aa.shape)}")
 
 
-def _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid, cfg):
-    """Checks of the uniforms-in wrappers: uniforms [B, U] f32, U = 4 + 3 *
-    max_depth, on the scene table's device. Returns (N, B)."""
+def _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid, cfg,
+                    transposed=False, **more):
+    """Checks of the uniforms-in wrappers: uniforms [B, U] f32 (with
+    `transposed`, [U, B]), U = 4 + 3 * max_depth, contiguous on the scene
+    table's device; `more` as in `_check_batch`. Returns (N, B)."""
     U = uniforms_per_photon(cfg.max_depth)
-    if uniforms.dim() != 2 or uniforms.shape[1] != U:
-        raise ValueError(f"uniforms must be [B, {U}], got "
+    want = "[U, B]" if transposed else "[B, U]"
+    if uniforms.dim() != 2 or uniforms.shape[0 if transposed else 1] != U:
+        raise ValueError(f"uniforms must be {want} with U = {U}, got "
                          f"{tuple(uniforms.shape)}")
-    B = uniforms.shape[0]
+    B = uniforms.shape[1 if transposed else 0]
     n = _check_batch(fields, group_counts, em_vec, n_valid, B,
-                     uniforms=uniforms)
+                     uniforms=uniforms, **more)
     return n, B
+
+
+def _uniforms_of(uniforms, transposed):
+    """(the [B, U] view the plain versions read, the [U, B] tensor the
+    kernels read); the second is made only on a CUDA device."""
+    if transposed:
+        return uniforms.t(), uniforms
+    if uniforms.device.type == "cpu":
+        return uniforms, None
+    return uniforms, uniforms.t().contiguous()
 
 
 def _check_acc(out, num_texels, dev):
@@ -472,7 +526,7 @@ def trace_splat_wide_rng_i8(
     photon_pallas_wide.trace_splat_wide_rng(i8=True)); a failed build or
     launch raises. CPU tensors run the plain version. `out`, if given, is
     zeroed and filled."""
-    n = _check_batch(fields, group_counts, em_vec, n_valid, batch_size)
+    _check_batch(fields, group_counts, em_vec, n_valid, batch_size)
     check_i8_accumulator(cfg, batch_size)
     dev = fields.device
     out = _check_acc(out, num_texels, dev)
@@ -483,7 +537,6 @@ def trace_splat_wide_rng_i8(
             fields, group_counts, em_vec, seed, n_valid, batch_size, cfg
         )
         return splat_i8_plain(idx, col, num_texels, inv_s, out)
-    check_smem("trace_splat_wide_rng", 4 * F_AA * n, n)
     launch("fm_trace_splat_wide_rng_i8", dev,
             fields.data_ptr(), em_vec.data_ptr(), out.data_ptr(),
             *_trace_args(fields, group_counts, seed, n_valid, cfg,
@@ -509,13 +562,12 @@ def trace_splat_wide_rng_f32(
     of `stream_bound(cfg)`), so it equals `trace_deposits_wide_rng` +
     `fused_splat` bit for bit; a failed build or launch raises. CPU tensors
     run the plain version."""
-    n = _check_batch(fields, group_counts, em_vec, n_valid, batch_size)
+    _check_batch(fields, group_counts, em_vec, n_valid, batch_size)
     dev = fields.device
     if dev.type == "cpu":
         return trace_splat_wide_rng_f32_plain(fields, group_counts, em_vec,
                                               seed, n_valid, batch_size, cfg,
                                               num_texels)
-    check_smem("trace_splat_wide_rng_f32", 4 * F_AA * n, n)
     out = _launch_f32(
         "fm_trace_splat_wide_rng_f32", dev, num_texels,
         (fields.data_ptr(), em_vec.data_ptr()),
@@ -526,6 +578,12 @@ def trace_splat_wide_rng_f32(
 
 
 trace_splat_wide_rng_f32.launches = 0
+
+
+def _check_diff(n, albedo_aa, grid, size, what):
+    _check_albedo(albedo_aa, n)
+    if grid.numel() != size:
+        raise ValueError(f"{what} must hold {size} value(s)")
 
 
 def trace_splat_wide_diff_rng_i8(
@@ -546,9 +604,7 @@ def trace_splat_wide_diff_rng_i8(
     is zeroed and filled."""
     n = _check_batch(fields, group_counts, em_vec, n_valid, batch_size,
                      albedo_aa=albedo_aa, inv_scale=inv_scale)
-    _check_albedo(albedo_aa, n)
-    if inv_scale.numel() != 1:
-        raise ValueError("inv_scale must hold one value")
+    _check_diff(n, albedo_aa, inv_scale, 1, "inv_scale")
     check_i8_accumulator(cfg, batch_size)
     dev = fields.device
     out = _check_acc(out, num_texels, dev)
@@ -559,7 +615,6 @@ def trace_splat_wide_diff_rng_i8(
             albedo_aa,
         )
         return splat_i8_plain(idx, col, num_texels, float(inv_scale), out)
-    check_smem("trace_splat_wide_diff_rng", 4 * (F_AA + 1) * n, n)
     launch("fm_trace_splat_wide_diff_rng_i8", dev,
             fields.data_ptr(), albedo_aa.data_ptr(), em_vec.data_ptr(),
             inv_scale.data_ptr(), out.data_ptr(),
@@ -589,15 +644,12 @@ def trace_splat_wide_diff_rng_f32(
     and does not read `fixed`."""
     n = _check_batch(fields, group_counts, em_vec, n_valid, batch_size,
                      albedo_aa=albedo_aa, fixed=fixed)
-    _check_albedo(albedo_aa, n)
-    if fixed.numel() != 2:
-        raise ValueError("fixed must hold (2^k, 2^-k)")
+    _check_diff(n, albedo_aa, fixed, 2, "fixed")
     dev = fields.device
     if dev.type == "cpu":
         return trace_splat_wide_rng_f32_plain(fields, group_counts, em_vec,
                                               seed, n_valid, batch_size, cfg,
                                               num_texels, albedo_aa)
-    check_smem("trace_splat_wide_diff_rng", 4 * (F_AA + 1) * n, n)
     out = _launch_f32(
         "fm_trace_splat_wide_diff_rng_f32", dev, num_texels,
         (fields.data_ptr(), albedo_aa.data_ptr(), em_vec.data_ptr(),
@@ -610,10 +662,120 @@ def trace_splat_wide_diff_rng_f32(
 trace_splat_wide_diff_rng_f32.launches = 0
 
 
+def trace_splat_wide_diff_i8(
+    fields: torch.Tensor, group_counts, albedo_aa: torch.Tensor,
+    em_vec: torch.Tensor, uniforms: torch.Tensor, n_valid: int,
+    cfg: PhotonConfig, num_texels: int, inv_scale: torch.Tensor,
+    out: torch.Tensor = None, transposed: bool = False,
+) -> torch.Tensor:
+    """`trace_splat_wide_diff_rng_i8` with the draws passed in (`fit
+    --no-device-rng`): photon p draws column c from uniforms[p, c] ([B, U]
+    f32, or its [U, B] transpose with `transposed`; the threefry draws of
+    `ops.threefry.batch_uniforms`). Returns the int32 [num_texels, 3]
+    accumulator on the run-time grid `inv_scale`.
+
+    CUDA tensors launch `csrc/trace_splat_wide_diff_rng.cu` (the port of
+    photon_pallas_wide.trace_splat_wide_diff(i8=True)); a failed build or
+    launch raises. CPU tensors run the plain version. `out`, if given, is
+    zeroed and filled."""
+    n, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
+                           cfg, transposed, albedo_aa=albedo_aa,
+                           inv_scale=inv_scale)
+    _check_diff(n, albedo_aa, inv_scale, 1, "inv_scale")
+    check_i8_accumulator(cfg, B)
+    dev = fields.device
+    out = _check_acc(out, num_texels, dev)
+    u, u_t = _uniforms_of(uniforms, transposed)
+    if dev.type == "cpu":
+        idx, col, _ = trace_uniforms_plain(fields, group_counts, em_vec, u,
+                                           n_valid, cfg, albedo_aa)
+        return splat_i8_plain(idx, col, num_texels, float(inv_scale), out)
+    launch("fm_trace_splat_wide_diff_i8", dev,
+           fields.data_ptr(), albedo_aa.data_ptr(), em_vec.data_ptr(),
+           u_t.data_ptr(), inv_scale.data_ptr(), out.data_ptr(), B,
+           *_trace_args(fields, group_counts, 0, n_valid, cfg, num_texels))
+    trace_splat_wide_diff_i8.launches += 1
+    return out
+
+
+trace_splat_wide_diff_i8.launches = 0
+
+
+def trace_splat_wide_diff_f32(
+    fields: torch.Tensor, group_counts, albedo_aa: torch.Tensor,
+    em_vec: torch.Tensor, uniforms: torch.Tensor, n_valid: int,
+    cfg: PhotonConfig, num_texels: int, fixed: torch.Tensor,
+    transposed: bool = False,
+) -> torch.Tensor:
+    """`trace_splat_wide_diff_rng_f32` with the draws passed in (uniforms
+    as in `trace_splat_wide_diff_i8`): the f32 [num_texels, 3] lightmap
+    increment of the batch's bf16 colors at the run-time scale `fixed`.
+
+    CUDA tensors launch `csrc/trace_splat_wide_diff_rng.cu` (the port of
+    photon_pallas_wide.trace_splat_wide_diff(i8=False)); a failed build or
+    launch raises. CPU tensors run the plain version, which sums in f32
+    and does not read `fixed`."""
+    n, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
+                           cfg, transposed, albedo_aa=albedo_aa, fixed=fixed)
+    _check_diff(n, albedo_aa, fixed, 2, "fixed")
+    dev = fields.device
+    u, u_t = _uniforms_of(uniforms, transposed)
+    if dev.type == "cpu":
+        idx, col, _ = trace_uniforms_plain(fields, group_counts, em_vec, u,
+                                           n_valid, cfg, albedo_aa)
+        return splat_f32_plain(idx, col, num_texels)
+    out = _launch_f32(
+        "fm_trace_splat_wide_diff_f32", dev, num_texels,
+        (fields.data_ptr(), albedo_aa.data_ptr(), em_vec.data_ptr(),
+         u_t.data_ptr(), fixed.data_ptr()),
+        (B, *_trace_args(fields, group_counts, 0, n_valid, cfg,
+                         num_texels)))
+    trace_splat_wide_diff_f32.launches += 1
+    return out
+
+
+trace_splat_wide_diff_f32.launches = 0
+
+
 def fold_smem_bytes(n_rects: int, max_depth: int) -> int:
     """Shared memory of the fold kernel: scene table, albedo row and one
     [N] row per warp, plus w and slot of every (bounce, photon)."""
     return 4 * ((F_AA + 1 + WARPS) * n_rects + 2 * max_depth * THREADS)
+
+
+def fold_max_rects(max_depth: int) -> int:
+    """The most rect slots the fold takes: its per-warp [N] rows and the
+    w and slot buffers in shared memory (the table and albedo row move to
+    device memory when they do not fit beside them): 6,752 at depth 8."""
+    return (SMEM_LIMIT - 4 * 2 * int(max_depth) * THREADS) // (4 * WARPS)
+
+
+def _check_fold(n, fields, albedo_aa, g_c, cfg, n_slots):
+    """The fold wrappers' own checks, after `_check_batch` gave the rect
+    count n."""
+    _check_albedo(albedo_aa, n)
+    if g_c.dim() != 2 or g_c.shape[1] != 3:
+        raise ValueError(f"g_c must be [T, 3], got {tuple(g_c.shape)}")
+    if int(n_slots) != n:
+        raise ValueError(f"n_slots={n_slots}, but the table has {n} slots")
+    if fields.device.type != "cpu":
+        check_smem("the fold", fold_smem_bytes(n, cfg.max_depth)
+                   - 4 * (F_AA + 1) * n, n, fold_max_rects(cfg.max_depth))
+
+
+def _launch_fold(entry, fields, albedo_aa, em_vec, g_c, head, tail, n,
+                 n_valid):
+    """Launch a fold entry point: its per-block partials, then the N + 1
+    sums. Returns (da_slots [n], w_sum)."""
+    dev = fields.device
+    blocks = -(-int(n_valid) // THREADS)
+    part = torch.empty(((n + 1) * max(blocks, 1),), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((n + 1,), dtype=torch.float32, device=dev)
+    launch(entry, dev, fields.data_ptr(), albedo_aa.data_ptr(),
+           em_vec.data_ptr(), g_c.data_ptr(), *head, part.data_ptr(),
+           out.data_ptr(), *tail)
+    return out[:n], out[n]
 
 
 def trace_fold_wide_rng(
@@ -632,34 +794,54 @@ def trace_fold_wide_rng(
     launch raises. CPU tensors run the plain version (`fold_plain`)."""
     n = _check_batch(fields, group_counts, em_vec, n_valid, batch_size,
                      albedo_aa=albedo_aa, g_c=g_c)
-    _check_albedo(albedo_aa, n)
-    if g_c.dim() != 2 or g_c.shape[1] != 3:
-        raise ValueError(f"g_c must be [T, 3], got {tuple(g_c.shape)}")
-    if int(n_slots) != n:
-        raise ValueError(f"n_slots={n_slots}, but the table has {n} slots")
-    dev = fields.device
-
-    if dev.type == "cpu":
+    _check_fold(n, fields, albedo_aa, g_c, cfg, n_slots)
+    if fields.device.type == "cpu":
         idx, col, ridx = trace_deposits_rng_plain(
             fields, group_counts, em_vec, seed, n_valid, batch_size, cfg,
             albedo_aa,
         )
         return fold_plain(idx, col, ridx, g_c, n)
-    check_smem("trace_fold_wide_rng", fold_smem_bytes(n, cfg.max_depth), n)
-    blocks = -(-int(n_valid) // THREADS)
-    part = torch.empty(((n + 1) * max(blocks, 1),), dtype=torch.float32,
-                       device=dev)
-    out = torch.empty((n + 1,), dtype=torch.float32, device=dev)
-    launch("fm_trace_fold_wide_rng", dev,
-            fields.data_ptr(), albedo_aa.data_ptr(), em_vec.data_ptr(),
-            g_c.data_ptr(), part.data_ptr(), out.data_ptr(),
-            *_trace_args(fields, group_counts, seed, n_valid, cfg,
-                         g_c.shape[0]))
+    out = _launch_fold("fm_trace_fold_wide_rng", fields, albedo_aa, em_vec,
+                       g_c, (), _trace_args(fields, group_counts, seed,
+                                            n_valid, cfg, g_c.shape[0]),
+                       n, n_valid)
     trace_fold_wide_rng.launches += 1
-    return out[:n], out[n]
+    return out
 
 
 trace_fold_wide_rng.launches = 0
+
+
+def trace_fold_wide(
+    fields: torch.Tensor, group_counts, albedo_aa: torch.Tensor,
+    em_vec: torch.Tensor, g_c: torch.Tensor, uniforms: torch.Tensor,
+    n_valid: int, cfg: PhotonConfig, n_slots: int, transposed: bool = False,
+):
+    """`trace_fold_wide_rng` with the draws passed in (uniforms as in
+    `trace_splat_wide_diff_i8`): the backward of `fit --no-device-rng`,
+    which replays `trace_splat_wide_diff_i8` or `_f32`'s photons. Returns
+    (da_slots [n_slots], w_sum), undivided; deterministic.
+
+    CUDA tensors launch `csrc/trace_fold_wide_rng.cu` (the port of
+    photon_pallas_wide.trace_fold_wide); a failed build or launch raises.
+    CPU tensors run the plain version (`fold_plain`)."""
+    n, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
+                           cfg, transposed, albedo_aa=albedo_aa, g_c=g_c)
+    _check_fold(n, fields, albedo_aa, g_c, cfg, n_slots)
+    u, u_t = _uniforms_of(uniforms, transposed)
+    if fields.device.type == "cpu":
+        idx, col, ridx = trace_uniforms_plain(fields, group_counts, em_vec, u,
+                                              n_valid, cfg, albedo_aa)
+        return fold_plain(idx, col, ridx, g_c, n)
+    out = _launch_fold("fm_trace_fold_wide", fields, albedo_aa, em_vec, g_c,
+                       (u_t.data_ptr(),),
+                       (B, *_trace_args(fields, group_counts, 0, n_valid,
+                                        cfg, g_c.shape[0])), n, n_valid)
+    trace_fold_wide.launches += 1
+    return out
+
+
+trace_fold_wide.launches = 0
 
 
 def _stream_block_of(batch_size: int, block) -> int:
@@ -671,19 +853,24 @@ def _stream_block_of(batch_size: int, block) -> int:
 
 
 def _launch_stream(entry, fields, group_counts, em_vec, extra, n_valid,
-                   batch_size, cfg, block, seed=0):
+                   batch_size, cfg, block, seed=0, albedo_aa=None):
     """Allocate the stream of one batch and launch `entry` on it; `extra`
-    are the pointers between the emitter vector and the stream."""
-    n = fields.shape[1]
-    check_smem(entry, 4 * F_AA * n, n)
+    are the pointers between the emitter vector and the stream. With
+    `albedo_aa` (the diff stream) its pointer goes before the emitter
+    vector, and the slots [R] int32 are allocated and written too."""
     R = int(batch_size) * int(cfg.max_depth)
     dev = fields.device
     idx = torch.empty((R,), dtype=torch.int32, device=dev)
     col = torch.empty((R, 3), dtype=torch.float32, device=dev)
-    launch(entry, dev, fields.data_ptr(), em_vec.data_ptr(), *extra,
-           idx.data_ptr(), col.data_ptr(), int(batch_size), block,
+    out = (idx, col)
+    head = (fields.data_ptr(),)
+    if albedo_aa is not None:
+        out += (torch.empty((R,), dtype=torch.int32, device=dev),)
+        head += (albedo_aa.data_ptr(),)
+    launch(entry, dev, *head, em_vec.data_ptr(), *extra,
+           *(t.data_ptr() for t in out), int(batch_size), block,
            *_trace_args(fields, group_counts, seed, n_valid, cfg, 0))
-    return idx, col
+    return out
 
 
 def trace_deposits_wide_rng(
@@ -717,23 +904,24 @@ trace_deposits_wide_rng.launches = 0
 def trace_deposits_wide(
     fields: torch.Tensor, group_counts, em_vec: torch.Tensor,
     uniforms: torch.Tensor, n_valid: int, cfg: PhotonConfig,
-    block: int = None,
+    block: int = None, transposed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`trace_deposits_wide_rng` with the draws passed in: photon p draws
-    column c from uniforms[p, c] ([B, U] f32, U = 4 + 3 * max_depth; the
-    threefry draws of `ops.threefry.batch_uniforms`).
+    column c from uniforms[p, c] ([B, U] f32, U = 4 + 3 * max_depth, or its
+    [U, B] transpose with `transposed`; the threefry draws of
+    `ops.threefry.batch_uniforms`).
 
     CUDA tensors launch `csrc/trace_deposits_wide.cu` (the port of
-    photon_pallas_wide.trace_deposits_wide) on a transposed [U, B] copy of
-    the uniforms; a failed build or launch raises. CPU tensors run the
-    plain version."""
+    photon_pallas_wide.trace_deposits_wide) on the [U, B] layout (a
+    transposed copy of [B, U] uniforms); a failed build or launch raises.
+    CPU tensors run the plain version."""
     _, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
-                           cfg)
+                           cfg, transposed)
     block = _stream_block_of(B, block)
+    u, u_t = _uniforms_of(uniforms, transposed)
     if fields.device.type == "cpu":
-        return trace_deposits_wide_plain(fields, group_counts, em_vec,
-                                         uniforms, n_valid, cfg, block)
-    u_t = uniforms.t().contiguous()
+        return trace_deposits_wide_plain(fields, group_counts, em_vec, u,
+                                         n_valid, cfg, block)
     out = _launch_stream("fm_trace_deposits_wide", fields, group_counts,
                          em_vec, (u_t.data_ptr(),), n_valid, B, cfg, block)
     trace_deposits_wide.launches += 1
@@ -743,32 +931,67 @@ def trace_deposits_wide(
 trace_deposits_wide.launches = 0
 
 
+def trace_deposits_wide_diff(
+    fields: torch.Tensor, group_counts, albedo_aa: torch.Tensor,
+    em_vec: torch.Tensor, uniforms: torch.Tensor, n_valid: int,
+    cfg: PhotonConfig, block: int, transposed: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The diff renderer's deposit stream of one batch (`fit --splat
+    scatter|bucket|bucket_exact`, forward and backward): `trace_deposits_wide`
+    with a diffuse hit on rect slot j multiplying by albedo_aa[j] ([N] f32),
+    returning (idx [R] int32, col [R, 3] f32, ridx [R] int32), ridx the
+    diffuse-hit slot of each row (-1 at a mirror bounce, a miss or a dead
+    photon), in the JAX row order of `block` (the diff renderer's block,
+    diff.render.diff_block, not `stream_block`).
+
+    CUDA tensors launch `csrc/trace_deposits_wide.cu` (the port of
+    photon_pallas_wide.trace_deposits_wide_diff); a failed build or launch
+    raises. CPU tensors run the plain version."""
+    n, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
+                           cfg, transposed, albedo_aa=albedo_aa)
+    _check_albedo(albedo_aa, n)
+    block = _stream_block_of(B, block)
+    u, u_t = _uniforms_of(uniforms, transposed)
+    if fields.device.type == "cpu":
+        return trace_deposits_wide_diff_plain(fields, group_counts,
+                                              albedo_aa, em_vec, u, n_valid,
+                                              cfg, block)
+    out = _launch_stream("fm_trace_deposits_wide_diff", fields, group_counts,
+                         em_vec, (u_t.data_ptr(),), n_valid, B, cfg, block,
+                         albedo_aa=albedo_aa)
+    trace_deposits_wide_diff.launches += 1
+    return out
+
+
+trace_deposits_wide_diff.launches = 0
+
+
 def trace_splat_wide_i8(
     fields: torch.Tensor, group_counts, em_vec: torch.Tensor,
     uniforms: torch.Tensor, n_valid: int, cfg: PhotonConfig,
-    num_texels: int, out: torch.Tensor = None,
+    num_texels: int, out: torch.Tensor = None, transposed: bool = False,
 ) -> torch.Tensor:
     """`trace_splat_wide_rng_i8` with the draws passed in: photon p draws
-    column c from uniforms[p, c] ([B, U] f32, the threefry draws of
-    `ops.threefry.batch_uniforms`). Returns the int32 [num_texels, 3]
-    accumulator of the batch's 7-bit deposits, dithered per photon as the
-    default kernel dithers (de-scale with `splat_color_scale(cfg)`).
+    column c from uniforms[p, c] ([B, U] f32, or its [U, B] transpose with
+    `transposed`; the threefry draws of `ops.threefry.batch_uniforms`).
+    Returns the int32 [num_texels, 3] accumulator of the batch's 7-bit
+    deposits, dithered per photon as the default kernel dithers (de-scale
+    with `splat_color_scale(cfg)`).
 
     CUDA tensors launch `csrc/trace_splat_wide.cu` (the port of
-    photon_pallas_wide.trace_splat_wide(i8=True)) on a transposed [U, B]
-    copy of the uniforms; a failed build or launch raises. CPU tensors run
-    the plain version. `out`, if given, is zeroed and filled."""
-    n, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
-                           cfg)
+    photon_pallas_wide.trace_splat_wide(i8=True)) on the [U, B] layout; a
+    failed build or launch raises. CPU tensors run the plain version.
+    `out`, if given, is zeroed and filled."""
+    _, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
+                           cfg, transposed)
     check_i8_accumulator(cfg, B)
     dev = fields.device
     out = _check_acc(out, num_texels, dev)
+    u, u_t = _uniforms_of(uniforms, transposed)
     if dev.type == "cpu":
-        return trace_splat_wide_plain(fields, group_counts, em_vec, uniforms,
+        return trace_splat_wide_plain(fields, group_counts, em_vec, u,
                                       n_valid, cfg, num_texels, True, out)
-    check_smem("trace_splat_wide_i8", 4 * F_AA * n, n)
     inv_s = float(np.float32(1.0 / splat_color_scale(cfg)))
-    u_t = uniforms.t().contiguous()
     launch("fm_trace_splat_wide_i8", dev,
            fields.data_ptr(), em_vec.data_ptr(), u_t.data_ptr(),
            out.data_ptr(), B,
@@ -784,7 +1007,7 @@ trace_splat_wide_i8.launches = 0
 def trace_splat_wide_f32(
     fields: torch.Tensor, group_counts, em_vec: torch.Tensor,
     uniforms: torch.Tensor, n_valid: int, cfg: PhotonConfig,
-    num_texels: int,
+    num_texels: int, transposed: bool = False,
 ) -> torch.Tensor:
     """`trace_splat_wide_rng_f32` with the draws passed in (uniforms as in
     `trace_splat_wide_i8`): the f32 [num_texels, 3] lightmap increment of
@@ -792,17 +1015,15 @@ def trace_splat_wide_f32(
     bit for bit on the card.
 
     CUDA tensors launch `csrc/trace_splat_wide.cu` (the port of
-    photon_pallas_wide.trace_splat_wide(i8=False)) on a transposed [U, B]
-    copy of the uniforms; a failed build or launch raises. CPU tensors run
-    the plain version."""
-    n, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
-                           cfg)
+    photon_pallas_wide.trace_splat_wide(i8=False)) on the [U, B] layout; a
+    failed build or launch raises. CPU tensors run the plain version."""
+    _, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
+                           cfg, transposed)
     dev = fields.device
+    u, u_t = _uniforms_of(uniforms, transposed)
     if dev.type == "cpu":
-        return trace_splat_wide_plain(fields, group_counts, em_vec, uniforms,
+        return trace_splat_wide_plain(fields, group_counts, em_vec, u,
                                       n_valid, cfg, num_texels, False)
-    check_smem("trace_splat_wide_f32", 4 * F_AA * n, n)
-    u_t = uniforms.t().contiguous()
     out = _launch_f32(
         "fm_trace_splat_wide_f32", dev, num_texels,
         (fields.data_ptr(), em_vec.data_ptr(), u_t.data_ptr()),
@@ -924,9 +1145,11 @@ def render_all_wide(fields, group_counts, emitters: Emitters,
                           else trace_splat_wide_rng_f32)
                 draws = (rng.batch_seed(cfg.seed, gb), nv, bsz)
             else:
-                kernel = trace_splat_wide_i8 if i8 else trace_splat_wide_f32
-                draws = (threefry.batch_uniforms(cfg.seed, gb, bsz, U, dev),
-                         nv)
+                kernel = functools.partial(
+                    trace_splat_wide_i8 if i8 else trace_splat_wide_f32,
+                    transposed=True)
+                draws = (threefry.batch_uniforms(cfg.seed, gb, bsz, U, dev,
+                                                 transposed=True), nv)
             if i8:
                 kernel(fields, group_counts, ev(e), *draws, cfg, num_texels,
                        out=acc)
@@ -943,9 +1166,10 @@ def render_all_wide(fields, group_counts, emitters: Emitters,
                 fields, group_counts, ev(e), rng.batch_seed(cfg.seed, gb),
                 nv, bsz, cfg, block)
         else:
-            u = threefry.batch_uniforms(cfg.seed, gb, bsz, U, dev)
+            u = threefry.batch_uniforms(cfg.seed, gb, bsz, U, dev,
+                                        transposed=True)
             idx, col = trace_deposits_wide(fields, group_counts, ev(e), u,
-                                           nv, cfg, block)
+                                           nv, cfg, block, transposed=True)
         splat_stream(lm, idx, col, cfg)
     return lm
 

@@ -17,7 +17,7 @@ from .aa_scene import (
     A_BASE, A_CU, A_CV, A_HLEN, A_HS, A_HT, A_KTU, A_KTV, A_O, A_SN, A_WLEN,
     A_WS, A_WT, F_AA, GROUP_UV,
 )
-from ..utils.cuda_build import check_smem, launch
+from ..utils.cuda_build import launch
 
 MISS = 1e30
 PLAIN_RAYS = 1 << 17        # rays per step of the plain versions
@@ -142,7 +142,6 @@ def _check_rays(fields, group_counts, origins, dirs):
 
 def _launch_rays(entry, fields, group_counts, origins, dirs, outs, *tail):
     n = fields.shape[1]
-    check_smem(entry, 4 * F_AA * n, n)
     launch(entry, fields.device, fields.data_ptr(), origins.data_ptr(),
            dirs.data_ptr(), *(o.data_ptr() for o in outs), n,
            *(int(g) for g in group_counts), origins.shape[0], *tail)

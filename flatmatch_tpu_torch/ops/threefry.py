@@ -21,8 +21,14 @@ photons as the JAX package:
 Element i of a draw depends only on the key and i, not on the shape, so the
 first rows of a draw equal the draw of those rows alone.
 
-Keys are pairs of Python ints; the bits are int64 tensors holding uint32
-values, so every sum is taken mod 2^32 with `& MASK32` and `>>` is logical.
+`uniform` on a CUDA device launches `csrc/threefry.cu` (uint32 arithmetic,
+one thread per element; a failed build or launch raises); on the CPU it
+runs `uniform_plain`, the same function in int64 torch ops. Keys are pairs
+of Python ints (`prng_key` and `fold_in` are scalar work on the host); in
+the plain version the bits are int64 tensors holding uint32 values, so every
+sum is taken mod 2^32 with `& MASK32` and `>>` is logical. A [B, U] draw can
+also be written transposed, as [U, B]: the layout the uniforms-in trace
+kernels read.
 """
 from __future__ import annotations
 
@@ -30,6 +36,8 @@ import math
 from typing import Tuple
 
 import torch
+
+from ..utils.cuda_build import launch
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -74,8 +82,9 @@ def fold_in(key: Key, data: int) -> Key:
     return threefry2x32(key, 0, int(data) & MASK32)
 
 
-def uniform(key: Key, shape, device="cpu") -> torch.Tensor:
-    """jax.random.uniform(key, shape, float32) in [0, 1), on `device`."""
+def uniform_plain(key: Key, shape, device="cpu") -> torch.Tensor:
+    """Plain version of `uniform`: jax.random.uniform(key, shape, float32)
+    in [0, 1), in int64 torch ops on `device`."""
     n = math.prod(shape)
     idx = torch.arange(n, dtype=torch.int64, device=device)
     b0, b1 = threefry2x32(key, idx >> 32, idx & MASK32)
@@ -83,13 +92,55 @@ def uniform(key: Key, shape, device="cpu") -> torch.Tensor:
     return ((bits >> 9).to(torch.float32) * _MANTISSA_ULP).reshape(shape)
 
 
+def uniform(key: Key, shape, device="cpu",
+            transposed: bool = False) -> torch.Tensor:
+    """jax.random.uniform(key, shape, float32) in [0, 1), on `device`; with
+    `transposed` a 2-D shape (B, U) comes back as its contiguous [U, B]
+    transpose.
+
+    A CUDA device launches `csrc/threefry.cu` (bit-equal to the plain
+    version); a failed build or launch raises. The CPU runs
+    `uniform_plain`."""
+    shape = tuple(int(x) for x in shape)
+    if transposed and len(shape) != 2:
+        raise ValueError(f"a transposed draw must be 2-D, got {shape}")
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        u = uniform_plain(key, shape, dev)
+        return u.t().contiguous() if transposed else u
+    if dev.type != "cuda":
+        raise ValueError(f"uniform runs on the CPU or a CUDA device, not "
+                         f"{dev}")
+    n = math.prod(shape)
+    if transposed and n >= 2**31:
+        raise ValueError(f"{shape}: a transposed draw must hold < 2^31 "
+                         f"elements")
+    out = torch.empty(shape[::-1] if transposed else shape,
+                      dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    k0, k1 = (int(k) & MASK32 for k in key)
+    if transposed:
+        launch("fm_threefry_uniform_t", dev, k0, k1, shape[0], shape[1],
+               out.data_ptr())
+    else:
+        launch("fm_threefry_uniform", dev, k0, k1, n, out.data_ptr())
+    uniform.launches += 1
+    return out
+
+
+uniform.launches = 0
+
+
 def batch_uniforms(seed: int, batch_index: int, batch_size: int, U: int,
-                   device="cpu") -> torch.Tensor:
+                   device="cpu", transposed: bool = False) -> torch.Tensor:
     """The [batch_size, U] uniforms of photon batch `batch_index` (the
     global batch index) of a run with `seed`:
     uniform(fold_in(prng_key(seed), batch_index), (batch_size, U)), the
     keying of the JAX photon engines (engines/photon.py:183-184,
     engines/photon_pallas_wide.py:1692-1693). Row p depends only on the key
-    and p, so a batch cut to its first rows draws those rows unchanged."""
+    and p, so a batch cut to its first rows draws those rows unchanged.
+    With `transposed`, the [U, batch_size] transpose (what the uniforms-in
+    kernels read)."""
     key = fold_in(prng_key(seed), batch_index)
-    return uniform(key, (int(batch_size), int(U)), device)
+    return uniform(key, (int(batch_size), int(U)), device, transposed)

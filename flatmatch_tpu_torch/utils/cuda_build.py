@@ -7,8 +7,10 @@ library with a plain C interface, loaded through ctypes. The library goes to
 the headers and the flags, so an edit of any rebuilds it on first use and a
 fresh checkout builds it without a separate step. Nothing here runs when a
 module is imported. `launch` calls an entry point on PyTorch's current
-stream and raises on a CUDA error; `check_smem` refuses a scene table too
-large for a block's shared memory.
+stream and raises on a CUDA error; `check_smem` refuses a launch whose
+shared buffers (beyond the scene table, which the kernels read from device
+memory when it does not fit: launch_table in csrc/trace_wide.cuh) are too
+large for a block.
 """
 from __future__ import annotations
 
@@ -32,9 +34,11 @@ COMPILE_FLAGS = (
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-# C entry points: (pointer arguments, int arguments, float arguments); each
-# ends with the stream pointer and returns the CUDA error code
+# C entry points: their argument types (pointers, ints, floats; the threefry
+# keys as uint32 and its element count as int64); each ends with the stream
+# pointer and returns the CUDA error code
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U32, _I64 = ctypes.c_uint32, ctypes.c_longlong
 ENTRY_POINTS = {
     "fm_trace_splat_wide_rng_i8": [_P] * 3 + [_I] * 8 + [_F] * 10 + [_P],
     "fm_trace_splat_wide_rng_f32": [_P] * 4 + [_I] * 8 + [_F] * 11 + [_P],
@@ -42,14 +46,20 @@ ENTRY_POINTS = {
     "fm_trace_splat_wide_f32": [_P] * 5 + [_I] * 9 + [_F] * 11 + [_P],
     "fm_trace_splat_wide_diff_rng_i8": [_P] * 5 + [_I] * 8 + [_F] * 9 + [_P],
     "fm_trace_splat_wide_diff_rng_f32": [_P] * 6 + [_I] * 8 + [_F] * 9 + [_P],
+    "fm_trace_splat_wide_diff_i8": [_P] * 6 + [_I] * 9 + [_F] * 9 + [_P],
+    "fm_trace_splat_wide_diff_f32": [_P] * 7 + [_I] * 9 + [_F] * 9 + [_P],
     "fm_trace_fold_wide_rng": [_P] * 6 + [_I] * 8 + [_F] * 9 + [_P],
+    "fm_trace_fold_wide": [_P] * 7 + [_I] * 9 + [_F] * 9 + [_P],
     "fm_aa_nearest": [_P] * 5 + [_I] * 5 + [_P],
     "fm_nearest_distances": [_P] * 4 + [_I] * 5 + [_F] + [_P],
     "fm_ao_fused": [_P] * 6 + [_I] * 6 + [_F] + [_P],
     "fm_trace_deposits_wide_rng": [_P] * 4 + [_I] * 10 + [_F] * 9 + [_P],
     "fm_trace_deposits_wide": [_P] * 5 + [_I] * 10 + [_F] * 9 + [_P],
+    "fm_trace_deposits_wide_diff": [_P] * 7 + [_I] * 10 + [_F] * 9 + [_P],
     "fm_fused_splat_i8": [_P] * 4 + [_I] * 2 + [_F] * 2 + [_P],
     "fm_fused_splat": [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P],
+    "fm_threefry_uniform": [_U32, _U32, _I64, _P, _P],
+    "fm_threefry_uniform_t": [_U32, _U32, _I, _I, _P, _P],
 }
 SMEM_LIMIT = 232448   # dynamic shared memory of a block on sm_90
 
@@ -157,11 +167,14 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def check_smem(kernel: str, nbytes: int, n_rects: int):
-    """Raise if a kernel would need more shared memory than a block has."""
+def check_smem(kernel: str, nbytes: int, n_rects: int, cap: int = None):
+    """Raise if a kernel's shared buffers would need more shared memory than
+    a block has; `cap`, if given, is the largest rect count that fits."""
     if nbytes > SMEM_LIMIT:
+        most = "" if cap is None else f" (at most {cap} rects)"
         raise ValueError(f"{n_rects} rects need {nbytes} bytes of shared "
-                         f"memory in {kernel}; a block has {SMEM_LIMIT}")
+                         f"memory in {kernel}; a block has {SMEM_LIMIT}"
+                         f"{most}; see ROADMAP.md")
 
 
 def launch(name: str, dev, *args):

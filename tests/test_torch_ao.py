@@ -49,6 +49,17 @@ MINI_AA_MEAN = 1.25e-4   # JAX's own axis-aligned AO misses 1e-4 (see above)
 _cache = {}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: the plain versions' tensors are
+    small, so one thread is about as fast alone, and the parallel test
+    workers do not oversubscribe the cores they share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _scenes(name):
     """(JAX scene, port scene) of a fixture layout."""
     if name not in _cache:

@@ -577,17 +577,35 @@ def test_stream_wrappers_raise_on_a_failed_launch(dev, kernel, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_stream_trace_launch_refused_for_its_shared_memory(dev, monkeypatch):
-    """A scene table past a block's shared memory: with the wrapper's own
-    check out of the way, the CUDA attribute call refuses the launch and
-    the wrapper raises."""
-    n = 5000                                    # 13 * 4 * 5000 > 232448
-    f = torch.zeros((13, n), device=dev)
-    ev = torch.zeros(16, device=dev)
-    monkeypatch.setattr(pw, "check_smem", lambda *a: None)
-    with pytest.raises(RuntimeError, match="kernel launch failed"):
-        pw.trace_deposits_wide_rng(f, (n, 0, 0), ev, 0, 256, 256,
-                                   _stream_cfg())
+def test_stream_trace_launch_refused_for_its_shared_memory(dev):
+    """A scene table past a block's shared memory (5,200 rects, 270 KB) is
+    no longer refused: the stream trace reads it from device memory and
+    equals its plain version on every row, and, since each rect's copies
+    follow it and a copy never wins the strict-< tie, the stream of tiny's
+    own 13-rect table (its shared-memory instance)."""
+    aa_c, _, ev, u = _stream_inputs("tiny", dev, 256)
+    big, gc = _big_table(aa_c, 400)
+    assert 4 * 13 * big.shape[1] > 232448
+    cfg = _stream_cfg()
+    idx, col = pw.trace_deposits_wide(big, gc, ev, u, 200, cfg)
+    pidx, pcol = pw.trace_deposits_wide_plain(big, gc, ev, u, 200, cfg,
+                                              pw.stream_block(256))
+    assert pcol.sum().item() > 0
+    assert torch.equal(idx, pidx) and torch.equal(col, pcol)
+    sidx, scol = pw.trace_deposits_wide(aa_c.fields, aa_c.group_counts, ev,
+                                        u, 200, cfg)
+    assert torch.equal(idx, sidx) and torch.equal(col, scol)
+
+
+def _big_table(aa_c, k):
+    """The compact table with every rect repeated k times in place (group
+    by group): the same scene, k times the rects."""
+    f, start, cols = aa_c.fields, 0, []
+    for c in aa_c.group_counts:
+        cols.append(f[:, start:start + c].repeat_interleave(k, dim=1))
+        start += c
+    return (torch.cat(cols, 1).contiguous(),
+            tuple(k * int(c) for c in aa_c.group_counts))
 
 
 # --------------------------------------------------------------------------
@@ -782,3 +800,348 @@ def test_inkernel_wrappers_raise_on_a_failed_launch(dev, kernel,
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         run()
     assert getattr(pw, kernel).launches == before
+
+
+# --------------------------------------------------------------------------
+# the threefry kernel, the diff stream (row 6), the uniforms-in diff forward
+# (row 7) and fold (row 9), the stream tier's fold, and the kernels past the
+# old shared-memory cap
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(131072, 28), (1000, 7), (3, 1)])
+def test_threefry_kernel_matches_plain(dev, rows, cols):
+    """Bit for bit, in both layouts, and a draw cut to its first rows is
+    the first rows of the full draw."""
+    from flatmatch_tpu_torch.ops import threefry
+
+    key = threefry.fold_in(threefry.prng_key(7), 472)
+    before = threefry.uniform.launches
+    flat = threefry.uniform(key, (rows, cols), dev)
+    tr = threefry.uniform(key, (rows, cols), dev, transposed=True)
+    torch.cuda.synchronize()
+    assert threefry.uniform.launches == before + 2
+    want = threefry.uniform_plain(key, (rows, cols))
+    assert torch.equal(flat.cpu(), want)
+    assert tr.shape == (cols, rows) and torch.equal(tr.cpu(), want.t())
+    assert torch.equal(threefry.uniform(key, (rows // 2 + 1, cols), dev),
+                       flat[:rows // 2 + 1])
+    # radiosity's [C, rays, 2] draw of one chunk key
+    k2 = threefry.fold_in(threefry.fold_in(threefry.prng_key(3), 5), 2)
+    assert torch.equal(threefry.uniform(k2, (64, 100, 2), dev).cpu(),
+                       threefry.uniform_plain(k2, (64, 100, 2)))
+
+
+def _diff_uniform_calls(name, dev, n_valid, batch, power=1.7):
+    """Rows 6, 7 (i8, f32) and 9 on one batch of threefry uniforms: name ->
+    (wrapper call, its plain version on the same device)."""
+    from flatmatch_tpu_torch.ops import threefry
+
+    aa_c, T, alb, ev, inv = _diff_inputs(name, dev, power)
+    f, gc, cfg = aa_c.fields, aa_c.group_counts, CFG.photon
+    u = threefry.batch_uniforms(cfg.seed, 9, batch, 28, dev)
+    fixed = prender.fixed_pair(cfg, torch.tensor([power], device=dev), alb,
+                               batch)
+    g = torch.from_numpy(np.random.RandomState(5).rand(T, 3)
+                         .astype(np.float32)).to(dev)
+    n = f.shape[1]
+    block = prender.diff_block(batch)
+    plain = pw.trace_uniforms_plain(f, gc, ev, u, n_valid, cfg, alb)
+    return {
+        "trace_deposits_wide_diff": (
+            lambda: pw.trace_deposits_wide_diff(f, gc, alb, ev, u, n_valid,
+                                                cfg, block),
+            lambda: pw.stream_rows(plain[0], plain[1], block, plain[2])),
+        "trace_splat_wide_diff_i8": (
+            lambda: pw.trace_splat_wide_diff_i8(f, gc, alb, ev, u, n_valid,
+                                                cfg, T, inv),
+            lambda: pw.splat_i8_plain(plain[0], plain[1], T, inv.item())),
+        "trace_splat_wide_diff_f32": (
+            lambda: pw.trace_splat_wide_diff_f32(f, gc, alb, ev, u, n_valid,
+                                                 cfg, T, fixed),
+            lambda: pw.splat_f32_plain(plain[0], plain[1], T)),
+        "trace_fold_wide": (
+            lambda: pw.trace_fold_wide(f, gc, alb, ev, g, u, n_valid, cfg, n),
+            lambda: pw.fold_plain(*plain, g, n)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n_valid,batch", [
+    ("tiny", 1000, 1024),
+    ("mini", 131072, 131072),
+    ("mini", 4097, 8192),     # a tail batch
+])
+def test_diff_uniform_kernels_match_plain(dev, name, n_valid, batch):
+    """Row 6 equals its plain stream on every row; row 7's 7-bit
+    accumulator on every cell, its f32 increment within rtol 1e-5 (another
+    f32 order); row 9 within rtol 1e-4. Rows 7 f32 and 9 give the same bits
+    twice (no float atomics)."""
+    for kernel, (run, plain) in _diff_uniform_calls(name, dev, n_valid,
+                                                    batch).items():
+        wrapper = getattr(pw, kernel)
+        before = wrapper.launches
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2, kernel
+        want = plain()
+        if kernel == "trace_deposits_wide_diff":
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+            assert want[1].sum().item() > 0 and (want[2] >= 0).any()
+            for x, y in zip(a, want):
+                assert torch.equal(x, y), kernel
+        elif kernel == "trace_fold_wide":
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            assert want[0].abs().sum().item() > 0
+            np.testing.assert_allclose(
+                a[0].cpu().numpy(), want[0].cpu().numpy(), rtol=1e-4,
+                atol=1e-6 * want[0].abs().max().item())
+            np.testing.assert_allclose(a[1].item(), want[1].item(),
+                                       rtol=1e-4)
+        else:
+            assert torch.equal(a, b), kernel
+            assert want.sum().item() > 0
+            if kernel.endswith("_i8"):
+                assert torch.equal(a, want), kernel
+            else:
+                np.testing.assert_allclose(a.cpu().numpy(),
+                                           want.cpu().numpy(), rtol=1e-5,
+                                           atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_diff_uniform_kernels_at_defaults_equal_production(dev):
+    """At albedo 0.9 and power 1: row 7 i8 equals trace_splat_wide_i8 bit
+    for bit, row 7 f32 equals trace_splat_wide_f32, and row 6's (idx, col)
+    equals trace_deposits_wide's stream at the same block."""
+    calls = _diff_uniform_calls("mini", dev, 131072, 131072, power=1.0)
+    aa_c, T, ev = _inputs("mini", dev)
+    from flatmatch_tpu_torch.ops import threefry
+
+    cfg = CFG.photon
+    u = threefry.batch_uniforms(cfg.seed, 9, 131072, 28, dev)
+    f, gc = aa_c.fields, aa_c.group_counts
+    assert torch.equal(calls["trace_splat_wide_diff_i8"][0](),
+                       pw.trace_splat_wide_i8(f, gc, ev, u, 131072, cfg, T))
+    assert torch.equal(calls["trace_splat_wide_diff_f32"][0](),
+                       pw.trace_splat_wide_f32(f, gc, ev, u, 131072, cfg, T))
+    idx, col, _ = calls["trace_deposits_wide_diff"][0]()
+    sidx, scol = pw.trace_deposits_wide(f, gc, ev, u, 131072, cfg,
+                                        prender.diff_block(131072))
+    assert torch.equal(idx, sidx) and torch.equal(col, scol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splat", ["inkernel_i8", "inkernel", "scatter",
+                                   "bucket"])
+def test_threefry_diff_renderer_on_card(dev, splat):
+    """The threefry and stream tiers of the diff renderer on the card: two
+    passes give the same bits (row 9 and the stream tier's fold are fixed-
+    order sums), the lightmap is close to the CPU's and the gradients
+    within rtol 1e-4 of them."""
+    scene, _ = compile_scene(str(FIXTURES / "tiny.png"), 30.0, CFG)
+    ph = dataclasses.replace(CFG.photon, splat=splat, device_rng=False,
+                             photons_per_batch=4096)
+    w = np.random.RandomState(1).rand(scene.num_texels, 3).astype(np.float32)
+    runs = {}
+    for where in (dev, "cpu", dev):
+        em = pack_emitters(scene, ph.samples_per_area, ph.window_color,
+                           ph.light_color, device=where)
+        r = prender.make_diff_renderer_wide(em, scene.num_texels, ph,
+                                            pack_aa(scene.walls, where))
+        a = torch.full((len(scene.walls),), 0.8, device=where,
+                       requires_grad=True)
+        p = torch.full((len(em.counts),), 1.3, device=where,
+                       requires_grad=True)
+        lm = r(a, p)
+        torch.sum(lm * torch.from_numpy(w).to(where)).backward()
+        runs.setdefault(str(where), []).append(
+            (lm.detach().cpu(), a.grad.cpu(), p.grad.cpu()))
+    (l1, ga1, gp1), (l2, ga2, gp2) = runs[str(dev)]
+    (lc, gac, gpc), = runs["cpu"]
+    assert torch.equal(l1, l2) and torch.equal(ga1, ga2)
+    assert torch.equal(gp1, gp2) and l1.sum().item() > 0
+    np.testing.assert_allclose(l1.sum().item(), lc.sum().item(), rtol=1e-5)
+    np.testing.assert_allclose(ga1.numpy(), gac.numpy(), rtol=1e-4,
+                               atol=1e-6 * gac.abs().max().item())
+    np.testing.assert_allclose(gp1.numpy(), gpc.numpy(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_stream_tier_lightmap_scales_with_power_exactly(dev):
+    """The stream tier's splat scale follows the power: at power 4 the
+    lightmap is exactly 4x the one at power 1 (the fixed-point scale drops
+    two binary orders, so the integers are the same)."""
+    scene, _ = compile_scene(str(FIXTURES / "tiny.png"), 30.0, CFG)
+    ph = dataclasses.replace(CFG.photon, splat="scatter",
+                             photons_per_batch=4096)
+    em = pack_emitters(scene, ph.samples_per_area, ph.window_color,
+                       ph.light_color, device=dev)
+    r = prender.make_diff_renderer_wide(em, scene.num_texels, ph,
+                                        pack_aa(scene.walls, dev))
+    a = torch.full((len(scene.walls),), 0.8, device=dev)
+    lm1 = r(a, torch.ones(len(em.counts), device=dev))
+    lm4 = r(a, torch.full((len(em.counts),), 4.0, device=dev))
+    assert lm1.sum().item() > 0
+    assert torch.equal(lm4, 4 * lm1)
+
+
+@pytest.mark.cuda
+def test_stream_fold_is_deterministic_on_card(dev):
+    """Two stream-tier folds of a mini batch give the same bits, and equal
+    the CPU's within rtol 1e-4, the fold's bound for f32 sums of up to 10^5
+    terms in another order (tests/test_torch_diff.py)."""
+    calls = _diff_uniform_calls("mini", dev, 131072, 131072)
+    idx, col, ridx = calls["trace_deposits_wide_diff"][0]()
+    T = int(idx.max().item()) + 1
+    g = torch.from_numpy(np.random.RandomState(2).rand(T, 3)
+                         .astype(np.float32)).to(dev)
+    n = int(ridx.max().item()) + 1
+    a = prender.stream_fold(idx, col, ridx, g, n, 4096, 8)
+    b = prender.stream_fold(idx, col, ridx, g, n, 4096, 8)
+    c = prender.stream_fold(idx.cpu(), col.cpu(), ridx.cpu(), g.cpu(), n,
+                            4096, 8)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert a[0].abs().sum().item() > 0
+    np.testing.assert_allclose(a[0].cpu().numpy(), c[0].numpy(), rtol=1e-4)
+    np.testing.assert_allclose(a[1].item(), c[1].item(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernels_past_the_old_shared_memory_cap(dev):
+    """tiny's table with every rect repeated 400 times (5,200 rects, past
+    every kernel's old cap): each trace kernel, the fold and the three
+    nearest-hit kernels run their global-table instances and equal their
+    plain versions on the repeated table; the non-diff traces also equal
+    the 13-rect table's (shared-memory) results."""
+    from flatmatch_tpu_torch.engines import ao
+    from flatmatch_tpu_torch.ops import aa_query, threefry
+
+    aa_c, T, alb, ev, inv = _diff_inputs("tiny", dev)
+    big, gc = _big_table(aa_c, 400)
+    n = big.shape[1]
+    alb_big = alb.repeat_interleave(400).contiguous()
+    cfg = CFG.photon
+    B, nv = 512, 500
+    seed = rng.batch_seed(cfg.seed, 3)
+    u = threefry.batch_uniforms(cfg.seed, 3, B, 28, dev)
+    g = torch.from_numpy(np.random.RandomState(5).rand(T, 3)
+                         .astype(np.float32)).to(dev)
+    fixed = prender.fixed_pair(cfg, torch.tensor([1.7], device=dev), alb, B)
+    # the production, in-kernel and stream traces: equal to the small table
+    for run in (
+            lambda f, gc_: pw.trace_splat_wide_rng_i8(f, gc_, ev, seed, nv,
+                                                      B, cfg, T),
+            lambda f, gc_: pw.trace_splat_wide_rng_f32(f, gc_, ev, seed, nv,
+                                                       B, cfg, T),
+            lambda f, gc_: pw.trace_splat_wide_i8(f, gc_, ev, u, nv, cfg, T),
+            lambda f, gc_: pw.trace_splat_wide_f32(f, gc_, ev, u, nv, cfg, T),
+            lambda f, gc_: torch.cat([x.reshape(-1).float() for x in
+                                      pw.trace_deposits_wide_rng(
+                                          f, gc_, ev, seed, nv, B, cfg)])):
+        a = run(big, gc)
+        b = run(aa_c.fields, aa_c.group_counts)
+        torch.cuda.synchronize()
+        assert a.sum().item() > 0 and torch.equal(a, b)
+    # against the plain versions on the big table
+    plain = pw.trace_deposits_rng_plain(big, gc, ev, seed, nv, B, cfg,
+                                        alb_big)
+    uplain = pw.trace_uniforms_plain(big, gc, ev, u, nv, cfg, alb_big)
+    assert torch.equal(pw.trace_splat_wide_diff_rng_i8(
+        big, gc, alb_big, ev, seed, nv, B, cfg, T, inv),
+        pw.splat_i8_plain(plain[0], plain[1], T, inv.item()))
+    assert torch.equal(pw.trace_splat_wide_diff_i8(
+        big, gc, alb_big, ev, u, nv, cfg, T, inv),
+        pw.splat_i8_plain(uplain[0], uplain[1], T, inv.item()))
+    for got, want in (
+            (pw.trace_splat_wide_diff_rng_f32(big, gc, alb_big, ev, seed, nv,
+                                              B, cfg, T, fixed),
+             pw.splat_f32_plain(plain[0], plain[1], T)),
+            (pw.trace_splat_wide_diff_f32(big, gc, alb_big, ev, u, nv, cfg,
+                                          T, fixed),
+             pw.splat_f32_plain(uplain[0], uplain[1], T))):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    stream = pw.trace_deposits_wide_diff(big, gc, alb_big, ev, u, nv, cfg,
+                                         512)
+    for x, y in zip(stream, pw.stream_rows(uplain[0], uplain[1], 512,
+                                           uplain[2])):
+        assert torch.equal(x, y)
+    for got, want in (
+            (pw.trace_fold_wide_rng(big, gc, alb_big, ev, g, seed, nv, B,
+                                    cfg, n), pw.fold_plain(*plain, g, n)),
+            (pw.trace_fold_wide(big, gc, alb_big, ev, g, u, nv, cfg, n),
+             pw.fold_plain(*uplain, g, n))):
+        assert want[0].abs().sum().item() > 0
+        np.testing.assert_allclose(got[0].cpu().numpy(),
+                                   want[0].cpu().numpy(), rtol=1e-4,
+                                   atol=1e-6 * want[0].abs().max().item())
+        np.testing.assert_allclose(got[1].item(), want[1].item(), rtol=1e-4)
+    # the nearest-hit kernels
+    _, o, d = _ff_chunk("tiny", dev)        # rays from wall 0 into the room
+    dist, tex = aa_query.aa_nearest(big, gc, o, d)
+    pdist, ptex = aa_query.aa_nearest_plain(big, gc, o, d)
+    assert torch.equal(tex, ptex) and torch.equal(dist, pdist)
+    assert (tex >= 0).float().mean().item() > 0.5
+    assert torch.equal(aa_query.nearest_distances(big, gc, o, d, 10.0),
+                       aa_query.nearest_distances_plain(big, gc, o, d, 10.0))
+    from flatmatch_tpu_torch.config import AoConfig
+
+    scene, _ = compile_scene(str(FIXTURES / "tiny.png"), 30.0, CFG)
+    aa = pack_aa(scene.walls, dev)
+    big_aa, big_gc = _big_table(aa, 400)
+    centers, walls, dirs, fac, _, _ = ao._ao_fused_prep(
+        scene, AoConfig(geosphere_level=3))
+    args = [torch.from_numpy(x).to(dev) for x in (centers[:64], walls[:64],
+                                                  dirs, fac)]
+    got = ao.ao_fused(big_aa, big_gc, *args, 10.0)
+    assert torch.equal(got, ao.ao_fused(aa.fields, aa.group_counts, *args,
+                                        10.0))
+    want = ao.ao_fused_plain(big_aa, big_gc, *args, 10.0)
+    nz = want != 0
+    assert nz.any() and torch.equal(got == 0, want == 0)
+    assert ((got[nz] - want[nz]).abs() / want[nz].abs()).max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_fold_refuses_past_its_cap(dev):
+    """The fold's per-warp rows cap it at fold_max_rects (6,752 at depth
+    8); past that it raises naming the cap, before any launch."""
+    aa_c, T, alb, ev, _ = _diff_inputs("tiny", dev)
+    k = -(-(pw.fold_max_rects(8) + 1) // aa_c.fields.shape[1])
+    big, gc = _big_table(aa_c, k)
+    n = big.shape[1]
+    g = torch.ones((T, 3), device=dev)
+    before = pw.trace_fold_wide_rng.launches
+    with pytest.raises(ValueError, match=f"at most {pw.fold_max_rects(8)}"):
+        pw.trace_fold_wide_rng(big, gc, alb.repeat_interleave(k)
+                               .contiguous(), ev, g, 0, 8, 8, CFG.photon, n)
+    assert pw.trace_fold_wide_rng.launches == before
+    assert pw.fold_max_rects(8) == 6752
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["trace_deposits_wide_diff",
+                                    "trace_splat_wide_diff_i8",
+                                    "trace_splat_wide_diff_f32",
+                                    "trace_fold_wide", "threefry_uniform"])
+def test_threefry_tier_wrappers_raise_on_a_failed_launch(dev, kernel,
+                                                         monkeypatch):
+    """A CUDA error from the entry point raises; nothing falls back to the
+    plain version and no launch is counted."""
+    from flatmatch_tpu_torch.ops import threefry
+    from flatmatch_tpu_torch.utils import cuda_build
+
+    if kernel == "threefry_uniform":
+        wrapper = threefry.uniform
+
+        def run():
+            return threefry.uniform((0, 1), (256, 28), dev, True)
+    else:
+        wrapper = getattr(pw, kernel)
+        run = _diff_uniform_calls("tiny", dev, 200, 256)[kernel][0]
+    cuda_build.load_library()
+    monkeypatch.setattr(cuda_build, "_lib", _FailingLibrary())
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        run()
+    assert wrapper.launches == before

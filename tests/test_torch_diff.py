@@ -4,7 +4,10 @@ Scene `tiny` (13 rects, one window of 376 photons at 1300 samples per
 m^2), 384-photon batches, device RNG, in-kernel 7-bit splat. The JAX side runs
 trace_splat_wide_diff_rng(i8=True), trace_fold_wide_rng and
 make_diff_renderer_wide in Pallas interpret mode with sublanes=1, as
-tests/test_diff.py runs them; the port runs the plain PyTorch versions (the
+tests/test_diff.py runs them, at unroll=1 (the rolled rect loop tests the
+rects in the unrolled loop's order, so the bits are the same:
+flatmatch_tpu/ops/aa_query.resolve_unroll; interpret mode compiles it in
+less time); the port runs the plain PyTorch versions (the
 path CPU tensors take). Both read identical tables (flatmatch_tpu_torch.
 interop); parameters and cotangents are made from numpy seeds.
 
@@ -29,6 +32,7 @@ Tolerances and why:
   dithered 7-bit deposit by one step.
 """
 import dataclasses
+import functools
 import json
 
 import jax
@@ -69,6 +73,17 @@ JCFG = JaxPhotonConfig(**KW)
 CFG = PhotonConfig(**KW)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: the plain versions' tensors are
+    small, so one thread is about as fast alone, and the parallel test
+    workers do not oversubscribe the cores they share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def t():
     img = im.load_layout(TINY)
@@ -95,7 +110,11 @@ def t():
 
 @pytest.fixture(scope="module")
 def renderers(t):
-    with pltpu.force_tpu_interpret_mode():
+    with pytest.MonkeyPatch.context() as mp, \
+            pltpu.force_tpu_interpret_mode():
+        for name in ("trace_splat_wide_diff_rng", "trace_fold_wide_rng"):
+            mp.setattr(jw, name, functools.partial(getattr(jw, name),
+                                                   unroll=1))
         jr = jax_make_diff_renderer_wide(
             t["rects"], t["em"], t["scene"].num_texels, JCFG, t["aa"],
             sublanes=1)
@@ -118,7 +137,7 @@ def test_diff_forward_batch_matches_jax(t):
     with pltpu.force_tpu_interpret_mode():
         lm = np.asarray(jw.trace_splat_wide_diff_rng(
             t["aa_c"].fields, jnp.asarray(alb), ev, t["seed"], N_VALID, JCFG,
-            t["aa_c"].group_counts, t["total_c"], B, 1, i8=True,
+            t["aa_c"].group_counts, t["total_c"], B, 1, unroll=1, i8=True,
             scale=scale, inv_scale=inv_scale))
     p_scale, p_inv = prender.scale_pair(CFG, torch.tensor(power),
                                         torch.from_numpy(alb))
@@ -193,7 +212,7 @@ def test_fold_matches_jax(t, depth):
         da, dw = jw.trace_fold_wide_rng(
             t["aa_c"].fields, jnp.asarray(alb), ev,
             jw.cotangent_t(jnp.asarray(g), t["total_c"]), t["seed"], N_VALID,
-            jcfg, t["aa_c"].group_counts, t["n"], B, 1)
+            jcfg, t["aa_c"].group_counts, t["n"], B, 1, unroll=1)
     f, gc = t["port_aa_c"].fields, t["port_aa_c"].group_counts
     before = pw.trace_fold_wide_rng.launches
     pda, pdw = pw.trace_fold_wide_rng(
@@ -399,12 +418,15 @@ def test_fit_cli_writes_report(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--splat", "bucket"],
-    ["--no-device-rng"],
+    ["--splat", "bucket", "--profile", "prof"],
+    ["--no-device-rng", "--coordinator", "localhost:1234"],
     ["--engine", "photon_xla"],
     ["--checkpoint", "ck.npz"],
 ])
 def test_fit_cli_refuses_what_the_port_does_not_run(flags, tmp_path, capsys):
+    """`fit --splat bucket` and `fit --no-device-rng` run
+    (tests/test_torch_diff_threefry.py); the profiler, multi-host flags,
+    the general engines and checkpoints stay refused."""
     with pytest.raises(SystemExit) as e:
         cli.main(["fit", TINY, str(tmp_path), "--device", "cpu",
                   "--out", str(tmp_path / "o"), *flags])
@@ -416,13 +438,16 @@ def test_fit_cli_refuses_what_the_port_does_not_run(flags, tmp_path, capsys):
 @pytest.mark.parametrize("change", [dict(splat="scatter"),
                                     dict(device_rng=False)])
 def test_fit_library_refuses_what_the_port_does_not_run(t, change):
+    """The stream and threefry tiers build (tests/test_torch_diff_threefry.py
+    runs them); a scene without an axis-aligned table (aa=None, which needs
+    the general differentiable renderer) is still refused on every tier."""
     cfg = dataclasses.replace(CFG, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        prender.make_diff_renderer_wide(t["port_em"], t["scene"].num_texels,
+    r = prender.make_diff_renderer_wide(t["port_em"], t["scene"].num_texels,
                                         cfg, t["port_aa"])
+    assert r.stream == (cfg.splat == "scatter") and not r.device_rng
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pfit.fit_materials(np.zeros((t["scene"].num_texels, 3), f32),
-                           t["port_em"], t["scene"].num_texels, CFG, aa=None)
+                           t["port_em"], t["scene"].num_texels, cfg, aa=None)
 
 
 def test_diff_wrappers_check_inputs(t):

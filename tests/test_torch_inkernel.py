@@ -60,6 +60,17 @@ CFG = PhotonConfig(**KW)
 TINY = str(FIXTURES / "tiny.png")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: the plain versions' tensors are
+    small, so one thread is about as fast alone, and the parallel test
+    workers do not oversubscribe the cores they share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def t():
     """tiny's compact tables in both packages, one batch's draws and seed,

@@ -37,6 +37,17 @@ CFG = PhotonConfig(samples_per_area=3000.0, photons_per_batch=B, seed=9,
                    splat="inkernel_i8", device_rng=True)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: the plain versions' tensors are
+    small, so one thread is about as fast alone, and the parallel test
+    workers do not oversubscribe the cores they share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tables():
     img = im.load_layout(str(FIXTURES / "tiny.png"))

@@ -15,6 +15,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from flatmatch_tpu.config import DEFAULT_CONFIG as JAX_DEFAULT
@@ -35,6 +36,17 @@ from tests.conftest import FIXTURES
 f32 = np.float32
 SPA = 3000.0
 TINY = str(FIXTURES / "tiny.png")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: the plain versions' tensors are
+    small, so one thread is about as fast alone, and the parallel test
+    workers do not oversubscribe the cores they share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfg(cfg):

@@ -63,6 +63,17 @@ MINI = str(FIXTURES / "mini.png")
 prender = importlib.import_module("flatmatch_tpu_torch.render")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: the plain versions' tensors are
+    small, so one thread is about as fast alone, and the parallel test
+    workers do not oversubscribe the cores they share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tables():
     img = im.load_layout(TINY)
@@ -376,18 +387,29 @@ def test_library_refuses_what_stays_unported(photon, monkeypatch):
     dict(splat="inkernel_i8", device_rng=False),
 ])
 def test_diff_renderer_refuses_the_stream_tiers(photon):
+    """The diff renderer runs the stream tiers and the threefry draws
+    (tests/test_torch_diff_threefry.py); what it still refuses is a scene
+    without an axis-aligned table, on every tier."""
+    from flatmatch_tpu_torch.diff.fit import fit_materials
+
     cfg = dataclasses.replace(DEFAULT_CONFIG.photon, **photon)
     scene, _ = compile_scene(TINY, 30.0, DEFAULT_CONFIG)
     em = pack_emitters(scene, 3000.0, cfg.window_color, cfg.light_color)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pdiff.make_diff_renderer_wide(em, scene.num_texels, cfg,
+    r = pdiff.make_diff_renderer_wide(em, scene.num_texels, cfg,
                                       pack_aa(scene.walls))
+    assert r.stream == (cfg.splat in pdiff.STREAM_TIERS)
+    assert not r.device_rng
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        fit_materials(np.zeros((scene.num_texels, 3), f32), em,
+                      scene.num_texels, cfg, aa=None)
 
 
 @pytest.mark.parametrize("argv", [
     ["render", TINY, "--splat", "inkernel", "--checkpoint", "ck.npz"],
-    ["fit", TINY, "tiles", "--splat", "inkernel", "--no-device-rng"],
-    ["fit", TINY, "tiles", "--splat", "scatter"],
+    ["fit", TINY, "tiles", "--splat", "inkernel", "--no-device-rng",
+     "--profile", "prof"],
+    ["fit", TINY, "tiles", "--splat", "scatter", "--coordinator",
+     "localhost:1234"],
 ])
 def test_cli_refuses_what_stays_unported(argv, tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
