@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from flatmatch_tpu_torch/csrc and drives the port's
-six groups of paths on the card:
+seven groups of paths on the card:
 - the render: the production kernel against its plain PyTorch version,
   `tests/fixtures/mini.png` through the port's CLI at its defaults, the
   physics against the reference C engine's golden lightmap, and a 4x4
@@ -43,7 +43,17 @@ six groups of paths on the card:
   with the gradients of the two tiers compared, the new kernels and one
   forward plus backward on the 4x4 tiling, and every kernel on mini tiled
   13x13, whose scene table is past a block's shared memory (phases
-  26-30).
+  26-30);
+- the general route, on mini and on mini turned 30 degrees about z
+  (`rotated_scene`, which no axis-aligned table holds): the narrow kernel
+  (row 11) against its plain version, the physics of both general engines
+  (`photon_pallas` through the narrow kernel, `photon_xla`) against the
+  reference C engine, rotated mini through `run_engine` and mini through
+  `render --engine photon_xla` at the CLI defaults, the rotated 4x4
+  tiling at full budget and 8 batches of `photon_xla` on it, the narrow
+  kernel's device-memory instance on rotated 13x13, and the general AO of
+  mini and rotated mini against the reference build's dump (phases
+  31-35).
 Any failure exits non-zero. The line before the card's name lists every
 kernel with its launches on its path, its error against its plain version,
 its time, the plain version's time and its bound. The last line of standard
@@ -106,6 +116,9 @@ KERNEL_SITES = {
                                   f"{TPU_WIDE}:1168"),
     "trace_fold_wide": ("engines.photon_wide", "trace_fold_wide_rng",
                         f"{TPU_WIDE}:1326"),
+    "trace_deposits_narrow": ("engines.photon_narrow",
+                              "trace_deposits_narrow",
+                              "flatmatch_tpu/engines/photon_pallas.py:299"),
 }
 # the wrapper of a kernel is the function of its name, except
 WRAPPER_NAMES = {"threefry_uniform": "uniform"}
@@ -131,16 +144,25 @@ KERNELS = {
 # (tests/test_torch_ao.py::test_mini_ao_matches_jax_axis_aligned).
 MINI_AA_MEAN = 1.25e-4
 # Roofline of the trace kernels (H100 SXM datasheet rates:
-# 3.35 TB/s HBM, 67 TFLOP/s float32 outside the tensor cores). Operations
+# 3.35 TB/s HBM, 67 TFLOP/s float32 outside the tensor cores; that rate
+# counts a fused multiply-add as two operations, and the kernels are built
+# with -fmad=false, so each add or multiply issues on its own and they can
+# reach at most half of it, 128 lanes x 132 SMs x 1.98 GHz = 33.5e12 a
+# second: an operations bound here is a floor half as high as that). Operations
 # are counted from the kernel source per unit of this run's work: a rect
 # test is 12 f32 add/sub/mul and 8 compares and selects (trace_wide.cuh
 # rect loop); a traced bounce adds about 150 (three reciprocals, the draws,
 # sqrt/sin/cos, the basis, the new direction, attenuation and the deposit's
 # quantization); an emitted photon about 150; the fold adds about 10 per
 # traced bounce (three bf16 roundings, the dot and the suffix sum).
+# The general rect test of row 11 (csrc/trace_deposits_narrow.cu rect
+# loop): 33 f32 add/sub/mul/div (the plane dot products, the division, the
+# hit point and its two projections, the two far-edge differences) and 11
+# compares and selects.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_RECT_TEST = 20
+OPS_PER_GENERAL_RECT_TEST = 44
 OPS_PER_BOUNCE = 150
 OPS_PER_PHOTON = 150
 FOLD_OPS_PER_BOUNCE = 10
@@ -157,6 +179,32 @@ SPLAT_F32_OPS = 6
 # counts a fused multiply-add as two)
 THREEFRY_OPS = 80
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+
+
+def rotated_scene(scene, degrees):
+    """`scene` turned `degrees` about the z axis, for the general routes:
+    pos, width, height and n of every wall, window, light and box rect
+    rotated (in float64, rounded to float32), base and tile grids kept, so
+    the texel arena is laid out as before. Only numpy and
+    dataclasses.replace on the layout and its rects, so it turns either
+    package's Scene with the same arithmetic. The floor tint and the mirror
+    floor test only z, the samplers are symmetric in azimuth and the
+    window's sky fold is about the vertical, so the physics is unchanged."""
+    import numpy as np
+
+    t = np.radians(float(degrees))
+    rot = np.array([[np.cos(t), -np.sin(t), 0.0],
+                    [np.sin(t), np.cos(t), 0.0], [0.0, 0.0, 1.0]])
+
+    def turn(r):
+        return dataclasses.replace(r, **{
+            k: (rot @ np.asarray(getattr(r, k), np.float64)).astype(
+                np.float32) for k in ("pos", "width", "height", "n")})
+
+    lay = scene.layout
+    return type(scene)(dataclasses.replace(lay, **{
+        k: [turn(r) for r in getattr(lay, k)]
+        for k in ("walls", "windows", "lights", "box")}))
 
 
 def say(phase, **kv):
@@ -538,8 +586,9 @@ def kernels_vs_plain(inp, reps, plain_reps, fused_texels=None):
     return out
 
 
-def ao_bands(scene, tex):
-    """The AO arena of mini against the reference build's dump."""
+def ao_bands(scene, tex, mean=MINI_AA_MEAN):
+    """The AO arena of mini against the reference build's dump (the bulk
+    bands of tests/test_ao_parity.py, with `mean` for its mean band)."""
     import numpy as np
 
     gold = np.fromfile(FIXTURES / "mini_ao_texels.f32", dtype="<f4"
@@ -549,7 +598,7 @@ def ao_bands(scene, tex):
     within = float((rel < 5e-4).mean())
     check(bool((rel < 2e-2).all()), f"AO max rel diff {rel.max()}")
     check(within > 0.98, f"AO: only {within} of texels within 5e-4")
-    check(float(rel.mean()) < MINI_AA_MEAN, f"AO mean rel {rel.mean()}")
+    check(float(rel.mean()) < mean, f"AO mean rel {rel.mean()}")
     check(bool((tex[~l0] == 0).all()), "AO wrote a mipmap slot")
     return dict(max_rel=float(rel.max()), share_within_5e4=within,
                 mean_rel=float(rel.mean()))
@@ -635,6 +684,8 @@ def profiled(fn):
             group = "ao_fused.cu"
         elif "trace_deposits_kernel" in name:
             group = "trace_deposits_wide.cu"
+        elif "trace_deposits_narrow_kernel" in name:
+            group = "trace_deposits_narrow.cu"
         elif "uniform_kernel" in name or "uniform_t_kernel" in name:
             group = "threefry.cu"
         elif any(k in name for k in ("fused_splat", "descale_kernel",
@@ -1848,6 +1899,285 @@ def threefry_phases(dev, results, cfg, s, s6, make_layout):
     del s13, aa13
 
 
+# --------------------------------------------------------------------------
+# the general route: row 11, the general engine, the general AO (31-35)
+# --------------------------------------------------------------------------
+def general_setup(scene, cfg, dev, gb=0):
+    """The narrow table, emitter 0's vector and the [U, B] threefry
+    uniforms of global batch `gb` of `scene` at cfg."""
+    from flatmatch_tpu_torch.engines import photon_narrow as pn
+    from flatmatch_tpu_torch.engines import photon_wide as pw
+    from flatmatch_tpu_torch.ops import threefry
+    from flatmatch_tpu_torch.ops.device_scene import pack_emitters, pack_rects
+
+    ph = cfg.photon
+    rects = pack_rects(scene.walls, device=dev)
+    em = pack_emitters(scene, ph.samples_per_area, ph.window_color,
+                       ph.light_color, device=dev)
+    U = pw.uniforms_per_photon(ph.max_depth)
+    return dict(scene=scene, rects=rects, em=em,
+                table=pn.narrow_table(rects), ev=pw.emitter_vector(em, 0),
+                u_t=threefry.batch_uniforms(ph.seed, gb, ph.photons_per_batch,
+                                            U, dev, transposed=True))
+
+
+def narrow_bound(n_rects, bounces, photons, depth=8):
+    """Bound of one row 11 launch: `bounces` traced bounces over all
+    n_rects rects (OPS_PER_GENERAL_RECT_TEST each, OPS_PER_BOUNCE more per
+    bounce, OPS_PER_PHOTON per photon); bytes: the [18, N] table and the
+    emitter vector, the [U, B] uniforms read, idx and col (16 bytes per
+    photon and bounce) written."""
+    ops = (bounces * (n_rects * OPS_PER_GENERAL_RECT_TEST + OPS_PER_BOUNCE)
+           + photons * OPS_PER_PHOTON)
+    nbytes = (4 * (18 * n_rects + 16) + 4 * (4 + 3 * depth) * photons
+              + 16 * depth * photons)
+    return bound(nbytes, ops)
+
+
+def narrow_vs_plain(g, cfg, n_valid, reps=20, plain_reps=2):
+    """Row 11 on one batch of `g` against its plain version: ids equal on
+    >= 99.9% of rows, colors within rtol 1e-5, two runs bit-identical;
+    its time, the plain time and the bound."""
+    import numpy as np
+
+    from flatmatch_tpu_torch.engines import photon_narrow as pn
+
+    ph = cfg.photon
+    args = (g["table"], g["ev"], g["u_t"], n_valid, ph)
+    idx, col = pn.trace_deposits_narrow(*args)
+    idx2, col2 = pn.trace_deposits_narrow(*args)
+    pidx, pcol = pn.trace_deposits_narrow_plain(
+        g["table"], g["ev"], g["u_t"].t(), n_valid, ph)
+    sync()
+    check(bool((idx == idx2).all() and (col == col2).all()),
+          "trace_deposits_narrow: two runs differ")
+    rows_eq = (idx == pidx).all(1).float().mean().item()
+    check(rows_eq >= 0.999, f"trace_deposits_narrow: ids equal on only "
+          f"{rows_eq} of rows")
+    c, pc = col.cpu().numpy(), pcol.cpu().numpy()
+    check(pc.sum() > 0, "plain narrow trace deposited nothing")
+    check(bool((c[n_valid:] == 0).all()), "dead photons deposited")
+    close = np.abs(c - pc) <= 1e-5 * np.abs(pc) + 1e-7
+    check(bool(close.all()), f"trace_deposits_narrow: colors off by "
+          f"{np.abs(c - pc).max()}")
+    B, D = idx.shape
+    live = pcol.reshape(B, D, 3).sum(-1) > 0
+    bounces = int(live.sum().item()) + B - int(live[:, -1].sum().item())
+    n = g["table"].shape[1]
+    bnd = narrow_bound(n, bounces, B, D)
+    return dict(
+        rects=n, batch=B, n_valid=n_valid, rows_equal=rows_eq,
+        max_abs_err=float(np.abs(c - pc).max()), bit_identical_rerun=True,
+        traced_bounces_per_photon=bounces / B,
+        ms=cuda_ms(lambda: pn.trace_deposits_narrow(*args),
+                   reps),
+        plain_ms=cuda_ms(lambda: pn.trace_deposits_narrow_plain(
+            g["table"], g["ev"], g["u_t"].t(), n_valid, ph), plain_reps),
+        bound_ms=bnd[0], bound_by=bnd[1])
+
+
+def rotated_ao_bands(scene, tex):
+    """AO of mini turned 30 degrees against the unrotated reference dump.
+    The walls' geosphere frames turn with them, so the vertical walls keep
+    the bands of tests/test_ao_parity.py but for its bulk share (0.95; the
+    CPU measured 0.976) and a mean of 1e-3 (1.4e-4);
+    the floor's and the ceiling's frames stay fixed to the world's y axis,
+    so their 481 directions sample the hemisphere at other azimuths: a
+    mean relative difference below 0.06 there (0.031 measured on the CPU),
+    the level-0 total within 5e-3 and the texel correlation above 0.995."""
+    import numpy as np
+
+    from flatmatch_tpu_torch.scene.rectangle import num_tiles
+
+    gold = np.fromfile(FIXTURES / "mini_ao_texels.f32", dtype="<f4"
+                       ).reshape(scene.num_texels, 4)[:, :3]
+    l0 = scene.level0_mask()
+    vert = np.zeros(scene.num_texels, bool)
+    for w in scene.walls:
+        if abs(float(w.n[2])) < 0.5:
+            vert[w.base:w.base + num_tiles(w)] = True
+    out = {}
+    for name, m in (("vertical", vert & l0), ("horizontal", ~vert & l0)):
+        rel = np.abs(tex[m] - gold[m]) / np.maximum(np.abs(gold[m]), 1e-6)
+        out[name] = dict(texels=int(m.sum()), max_rel=float(rel.max()),
+                         mean_rel=float(rel.mean()),
+                         share_within_5e4=float((rel < 5e-4).mean()))
+    v, h = out["vertical"], out["horizontal"]
+    check(v["max_rel"] < 2e-2 and v["share_within_5e4"] > 0.95
+          and v["mean_rel"] < 1e-3, f"rotated AO, vertical walls: {v}")
+    check(h["mean_rel"] < 0.06, f"rotated AO, floor and ceiling: {h}")
+    ratio = float(tex[l0].sum() / gold[l0].sum())
+    corr = float(np.corrcoef(tex[l0, 0], gold[l0, 0])[0, 1])
+    check(abs(ratio - 1) < 5e-3 and corr > 0.995,
+          f"rotated AO: total ratio {ratio}, correlation {corr}")
+    check(bool((tex[~l0] == 0).all()), "AO wrote a mipmap slot")
+    return dict(out, total_ratio=ratio, texel_corr=corr)
+
+
+def general_phases(dev, results, make_layout):
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from flatmatch_tpu_torch.config import DEFAULT_CONFIG, Engine
+    from flatmatch_tpu_torch.engines import ao_general, photon
+    from flatmatch_tpu_torch.engines import photon_narrow as pn
+    from flatmatch_tpu_torch.engines.schedule import emitter_slice
+    from flatmatch_tpu_torch.io import tiles as tiles_io
+    from flatmatch_tpu_torch.ops import threefry
+    from flatmatch_tpu_torch.ops.aa_scene import pack_aa
+    from flatmatch_tpu_torch.ops.device_scene import pack_rects
+    from flatmatch_tpu_torch.render import compile_scene, run_engine
+    from flatmatch_tpu_torch.scene.rectangle import num_tiles
+
+    mini = FIXTURES / "mini.png"
+    cfg = DEFAULT_CONFIG
+    ph = cfg.photon
+    B, D = ph.photons_per_batch, ph.max_depth
+    scene, _ = compile_scene(str(mini), 30.0, cfg)
+    rscene = rotated_scene(scene, 30)
+    check(pack_aa(rscene.walls) is None, "rotated mini has a table")
+
+    # 31. row 11 against its plain version on mini and rotated mini --------
+    k31 = {"mini": narrow_vs_plain(general_setup(scene, cfg, dev), cfg, B),
+           "rotated_mini": narrow_vs_plain(general_setup(rscene, cfg, dev),
+                                           cfg, B - 4097)}
+    r = k31["rotated_mini"]
+    results["trace_deposits_narrow"] = dict(
+        max_abs_err=max(k["max_abs_err"] for k in k31.values()), ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=None)
+    say("narrow_kernel_vs_plain", **k31)
+
+    # 32. physics of both general engines against the reference C engine --
+    cfg5 = cfg.replace(photon=dc.replace(ph, samples_per_area=200000.0))
+    k32 = {}
+    for name, sc in (("mini", scene), ("rotated_mini", rscene)):
+        g5 = general_setup(sc, cfg5, dev)
+        before = pn.trace_deposits_narrow.launches
+        narrow = pn.render_photons(g5["rects"], g5["em"], sc.num_texels,
+                                   cfg5.photon)
+        check(pn.trace_deposits_narrow.launches > before,
+              "the narrow route launched no row 11")
+        xla = photon.render_photons(g5["rects"], g5["em"], sc.num_texels,
+                                    cfg5.photon)
+        k32[name] = dict(
+            photons=int(g5["em"].counts.sum()),
+            photon_pallas_narrow=physics_bands(
+                sc, narrow.cpu().numpy(), f"{name} narrow"),
+            photon_xla=physics_bands(sc, xla.cpu().numpy(),
+                                     f"{name} photon_xla"))
+    say("general_physics_vs_reference", samples_per_area=200000.0, **k32)
+
+    # 33. both general engines at the CLI defaults ---------------------------
+    counts = general_setup(scene, cfg, dev)["em"].counts
+    n_batches = sum(-(-int(n) // B) for n in counts if n > 0)
+    photons = int(counts.sum())
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        tex = run_engine(rscene, cfg, dev)
+        paths = tiles_io.save_tiles(rscene.walls, tex, str(
+            pathlib.Path(tmp) / "tiles"), False)
+        sync()
+        wall33 = time.perf_counter() - t0
+        launches33 = read_launches()
+    check(len(paths) == 27 and np.isfinite(tex).all() and tex.sum() > 0,
+          "rotated mini render")
+    want = {"trace_deposits_narrow": n_batches,
+            "threefry_uniform": n_batches, "fused_splat": n_batches}
+    check({k: v for k, v in launches33.items() if v} == want,
+          f"rotated mini launches {launches33}, want {want}")
+    results["trace_deposits_narrow"]["launches"] = n_batches
+    prof33 = profiled(lambda: run_engine(rscene, cfg, dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        wall_x, launches_x, _ = cli_render(
+            [str(mini), "30", "--engine", "photon_xla"], tmp, 27)
+    want_x = {"threefry_uniform": n_batches, "fused_splat": n_batches}
+    check({k: v for k, v in launches_x.items() if v} == want_x,
+          f"photon_xla launches {launches_x}, want {want_x}")
+    say("general_cli", photons=photons, batches=n_batches,
+        rotated_mini_photon_pallas=dict(
+            wall_s=wall33, photons_per_s=photons / wall33,
+            launches=launches33["trace_deposits_narrow"], profile=prof33),
+        mini_photon_xla=dict(wall_s=wall_x, photons_per_s=photons / wall_x,
+                             launches=launches_x))
+
+    # 34. rotated 4x4 at the full budget; 8 batches of photon_xla on 4x4 ---
+    with tempfile.TemporaryDirectory() as tmp:
+        png = pathlib.Path(tmp) / "mini_4x4.png"
+        make_layout.tiled(str(mini), str(png), 4, 4)
+        scene6, _ = compile_scene(str(png), 30.0, cfg)
+    rscene6 = rotated_scene(scene6, 30)
+    g6 = general_setup(rscene6, cfg, dev)
+    photons6 = int(g6["em"].counts.sum())
+    batches6 = sum(-(-int(n) // B) for n in g6["em"].counts if n > 0)
+    k34 = narrow_vs_plain(g6, cfg, B, reps=5, plain_reps=1)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    tex6 = run_engine(rscene6, cfg, dev)
+    wall34 = time.perf_counter() - t0
+    launches34 = read_launches()["trace_deposits_narrow"]
+    check(launches34 == batches6, f"rotated 4x4: {launches34} launches, "
+          f"want {batches6}")
+    check(np.isfinite(tex6).all() and tex6.sum() > 0, "rotated 4x4 render")
+    em0 = emitter_slice(g6["em"], 0)
+    U = 4 + 3 * D
+    lm = torch.zeros((rscene6.num_texels, 3), device=dev)
+    sync()
+    t0 = time.perf_counter()
+    for gb in range(8):
+        photon.trace_batch(lm, g6["rects"], em0, threefry.batch_uniforms(
+            ph.seed, gb, B, U, dev), B, ph)
+    sync()
+    xla8 = time.perf_counter() - t0
+    check(lm.sum().item() > 0, "photon_xla on 4x4 deposited nothing")
+    say("rotated_4x4", rects=len(rscene6.walls), photons=photons6,
+        batches=batches6, narrow=dict(wall_s=wall34,
+                                      photons_per_s=photons6 / wall34,
+                                      launches=launches34, kernel=k34),
+        photon_xla_8_batches=dict(wall_s=xla8, s_per_batch=xla8 / 8,
+                                  whole_render_s_extrapolated=xla8 / 8
+                                  * batches6))
+    del g6, tex6, lm
+
+    # 35. rotated 13x13 past shared memory; the general AO of mini ----------
+    with tempfile.TemporaryDirectory() as tmp:
+        png = pathlib.Path(tmp) / "mini_13x13.png"
+        make_layout.tiled(str(mini), str(png), 13, 13)
+        scene13, _ = compile_scene(str(png), 30.0, cfg)
+    g13 = general_setup(rotated_scene(scene13, 30), cfg, dev)
+    n13 = g13["table"].shape[1]
+    check(n13 == 4563 and 4 * 18 * n13 > 232448,
+          f"rotated 13x13: {n13} rects fit in shared memory")
+    k35 = narrow_vs_plain(g13, cfg, B, reps=3, plain_reps=1)
+    del g13
+    cfg_ao = cfg.replace(engine=Engine.AMBIENT_OCCLUSION)
+    ao_out = {}
+    for name, sc in (("mini", scene), ("rotated_mini", rscene)):
+        rects = pack_rects(sc.walls, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        tex = ao_general.render_ao(sc, rects, cfg_ao.ao)
+        wall = time.perf_counter() - t0
+        check(np.array_equal(tex, ao_general.render_ao(sc, rects, cfg_ao.ao)),
+              f"two general AO runs of {name} differ")
+        bands = (ao_bands(sc, tex, mean=1e-4) if name == "mini"
+                 else rotated_ao_bands(sc, tex))
+        ao_out[name] = dict(wall_s=wall, bit_identical=True, **bands)
+    # run_engine takes the general AO when there is no table
+    check(np.array_equal(run_engine(rscene, cfg_ao, dev),
+                         ao_general.render_ao(rscene, pack_rects(
+                             rscene.walls, device=dev), cfg_ao.ao)),
+          "run_engine's AO of rotated mini is not the general AO")
+    say("general_past_shared_memory_and_ao", rotated_13x13=dict(
+        table_bytes=4 * 18 * n13, **k35), general_ao=ao_out,
+        level0_texels=int(sum(num_tiles(w) for w in scene.walls)))
+
+
 def _fit_cfg(ph, flags):
     """The photon config the fit CLI builds from `flags`."""
     import dataclasses as dc
@@ -2293,6 +2623,7 @@ def main():
     stream_phases(dev, results, cfg, s, dict(s5, cfg=cfg5), s6)
     inkernel_phases(dev, results, cfg, s, dict(s5, cfg=cfg5), s6)
     threefry_phases(dev, results, cfg, s, s6, make_layout)
+    general_phases(dev, results, make_layout)
 
     print(json.dumps({"kernels": [dict(KERNELS[k], **results[k])
                                   for k in KERNELS]}))

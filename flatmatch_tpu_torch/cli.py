@@ -7,12 +7,14 @@ Same positional arguments, flags and defaults as `flatmatch_tpu.cli render`
 and `fit` (their production defaults: --device-rng on, --splat
 inkernel_i8), plus `--device` (default cuda). `render` runs the engines
 photon_pallas (the default; every --splat, in-kernel or deposit-stream,
-with or without --device-rng), ambient_occlusion (fused, or --ao-chunked)
-and radiosity; `fit` runs every --splat too: the in-kernel splats
-(inkernel_i8, inkernel, and fused_i8 and fused, which the JAX package's fit
-maps onto them) with or without --device-rng, and the deposit-stream splats
-(scatter, bucket, bucket_exact), which draw threefry either way, as the
-JAX package's fit does. Flags and values outside the ported slices exit
+with or without --device-rng, on axis-aligned scenes, and the narrow
+general kernel on others), photon_xla (the general engine, which ignores
+--splat and --device-rng as the JAX package's does), ambient_occlusion
+(fused, or --ao-chunked) and radiosity; `fit` runs every --splat too: the
+in-kernel splats (inkernel_i8, inkernel, and fused_i8 and fused, which the
+JAX package's fit maps onto them) with or without --device-rng, and the
+deposit-stream splats (scatter, bucket, bucket_exact), which draw threefry
+either way, as the JAX package's fit does. Flags and values outside the ported slices exit
 with an error that names ROADMAP.md rather than being ignored. The other
 commands of the JAX package (package, serve, debug) are not ported yet.
 """
@@ -25,7 +27,8 @@ import sys
 from .config import DEFAULT_CONFIG, Engine
 
 PORTED_ENGINES = tuple(e.value for e in (
-    Engine.PHOTON_PALLAS, Engine.AMBIENT_OCCLUSION, Engine.RADIOSITY))
+    Engine.PHOTON_PALLAS, Engine.PHOTON_XLA, Engine.AMBIENT_OCCLUSION,
+    Engine.RADIOSITY))
 
 
 def _add_engine_flags(p: argparse.ArgumentParser):
@@ -33,8 +36,8 @@ def _add_engine_flags(p: argparse.ArgumentParser):
         "--engine",
         choices=[e.value for e in Engine],
         default=DEFAULT_CONFIG.engine.value,
-        help="illumination engine (photon_xla and photon_oracle are not "
-        "ported)",
+        help="illumination engine (photon_oracle is not ported; fit runs "
+        "photon_pallas's differentiable renderer, not photon_xla's)",
     )
     p.add_argument(
         "--samples-per-area",
@@ -152,6 +155,9 @@ def _outside_slice(args) -> list:
     out = []
     if args.engine not in PORTED_ENGINES:
         out.append(f"--engine {args.engine}")
+    elif args.cmd == "fit" and args.engine == Engine.PHOTON_XLA.value:
+        out.append("fit --engine photon_xla (the general differentiable "
+                   "renderer)")
     if args.checkpoint is not None:
         out.append("--checkpoint")
     if getattr(args, "preview", False):

@@ -16,6 +16,8 @@
 //     trace_fold_wide_rng.cu.
 // With every per-slot albedo equal to the scalar one, both variants do the
 // same float operations in the same order, so they give the same bits.
+// Its emission and bounce (emit_photon, bounce) also serve the general
+// trace of trace_deposits_narrow.cu.
 //
 // Every kernel that includes this builds with -fmad=false (see
 // flatmatch_tpu_torch/utils/cuda_build.py): each product is rounded on its
@@ -279,6 +281,98 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
+// Emission (photonmap.cl:173-181) of one photon from the 16-float emitter
+// vector `em` (pos, wvec, hvec, n, color, is_window flag): its start point
+// (nudged eps along the direction), direction and color.
+template <class Draw>
+__device__ __forceinline__ void emit_photon(const float* __restrict__ em,
+                                            const Params& P,
+                                            const Draw& draws, float& px,
+                                            float& py, float& pz,
+                                            float& dirx, float& diry,
+                                            float& dirz, float& cr,
+                                            float& cg, float& cb) {
+  const float epx = em[0], epy = em[1], epz = em[2];
+  const float ewx = em[3], ewy = em[4], ewz = em[5];
+  const float ehx = em[6], ehy = em[7], ehz = em[8];
+  const float enx = em[9], eny = em[10], enz = em[11];
+  cr = em[12];
+  cg = em[13];
+  cb = em[14];
+  const float is_window = em[15];
+
+  const float dxe = draws(0);
+  const float dye = draws(1);
+  const float r = sqrtf(draws(2));
+  const float phi = P.two_pi * draws(3);
+  float uu = r * cosf(phi);
+  const float vv = r * sinf(phi);
+  const float nn = sqrtf(1.0f - r * r);
+  // Window emission (note 6): a window emits into its inner half-space.
+  if (is_window > 0.0f) uu = fabsf(uu);
+
+  float ux, uy, uz, vx, vy, vz;
+  build_base(enx, eny, enz, ux, uy, uz, vx, vy, vz);
+  // Evaluation order (note 4): every sum associates left to right as in
+  // the JAX source, e.g. epx + ewx*dxe + ehx*dye + dirx*eps.
+  dirx = ux * uu + vx * vv + enx * nn;
+  diry = uy * uu + vy * vv + eny * nn;
+  dirz = uz * uu + vz * vv + enz * nn;
+  px = epx + ewx * dxe + ehx * dye + dirx * P.eps;
+  py = epy + ewy * dxe + ehy * dye + diry * P.eps;
+  pz = epz + ewz * dxe + ehz * dye + dirz * P.eps;
+}
+
+// Russian roulette and the bounce at a hit (photonmap.cl:236-254): the
+// photon at height pz on a rect of normal hn takes the diffuse branch
+// (cosine resample, floor tint, albedo: the per-slot albedo s_alb[bslot]
+// when kDiff, else the scalar one) or the mirror branch; returns whether it
+// was diffuse. The same code serves the axis-aligned and the general trace.
+template <bool kDiff, class Draw>
+__device__ __forceinline__ bool bounce(const Params& P, const Draw& draws,
+                                       int d, float hnx, float hny,
+                                       float hnz, float pz,
+                                       const float* __restrict__ s_alb,
+                                       int bslot, float& dirx, float& diry,
+                                       float& dirz, float& cr, float& cg,
+                                       float& cb) {
+  const float u_rr = draws(4 + 3 * d);
+  const float u1 = draws(5 + 3 * d);
+  const float u2 = draws(6 + 3 * d);
+  // the diffuse/mirror choice reads pz at the hit point
+  const bool diffuse = (pz > P.mirror_z) || (u_rr > P.rr);
+  if (diffuse) {
+    const float rd = sqrtf(u1);
+    const float phid = P.two_pi * u2;
+    const float duu = rd * cosf(phid);
+    const float dvv = rd * sinf(phid);
+    const float dnn = sqrtf(1.0f - rd * rd);
+    float bux, buy, buz, bvx, bvy, bvz;
+    build_base(hnx, hny, hnz, bux, buy, buz, bvx, bvy, bvz);
+    const bool on_floor = pz < P.tint_z;
+    const float tr = on_floor ? P.tint_r : 1.0f;
+    const float tg = on_floor ? P.tint_g : 1.0f;
+    const float tb = on_floor ? P.tint_b : 1.0f;
+    // the order c * tint * albedo of photon_pallas_wide.py:495-497
+    const float alb = kDiff ? s_alb[bslot] : P.albedo;
+    cr = cr * tr * alb;
+    cg = cg * tg * alb;
+    cb = cb * tb * alb;
+    dirx = bux * duu + bvx * dvv + hnx * dnn;
+    diry = buy * duu + bvy * dvv + hny * dnn;
+    dirz = buz * duu + bvz * dvv + hnz * dnn;
+  } else {
+    const float ndotd = hnx * dirx + hny * diry + hnz * dirz;
+    const float mdx = dirx - 2.0f * ndotd * hnx;
+    const float mdy = diry - 2.0f * ndotd * hny;
+    const float mdz = dirz - 2.0f * ndotd * hnz;
+    dirx = mdx;
+    diry = mdy;
+    dirz = mdz;
+  }
+  return diffuse;
+}
+
 // Trace one photon of the batch, whose draw column c is draws(c) (HashDraw,
 // or the uniforms of trace_deposits_wide.cu). `s` is the [F_AA][N] scene
 // table in shared memory, `s_alb` the per-slot albedo row (read only when
@@ -298,34 +392,8 @@ __device__ __forceinline__ void trace_photon(const float* __restrict__ s,
   const int N = P.n_rects;
 #define S(row, j) s[(row) * N + (j)]
 
-  // --- emission (photonmap.cl:173-181) ------------------------------------
-  const float epx = em[0], epy = em[1], epz = em[2];
-  const float ewx = em[3], ewy = em[4], ewz = em[5];
-  const float ehx = em[6], ehy = em[7], ehz = em[8];
-  const float enx = em[9], eny = em[10], enz = em[11];
-  float cr = em[12], cg = em[13], cb = em[14];
-  const float is_window = em[15];
-
-  const float dxe = draws(0);
-  const float dye = draws(1);
-  const float r = sqrtf(draws(2));
-  const float phi = P.two_pi * draws(3);
-  float uu = r * cosf(phi);
-  const float vv = r * sinf(phi);
-  const float nn = sqrtf(1.0f - r * r);
-  // Window emission (note 6): a window emits into its inner half-space.
-  if (is_window > 0.0f) uu = fabsf(uu);
-
-  float ux, uy, uz, vx, vy, vz;
-  build_base(enx, eny, enz, ux, uy, uz, vx, vy, vz);
-  // Evaluation order (note 4): every sum associates left to right as in
-  // the JAX source, e.g. epx + ewx*dxe + ehx*dye + dirx*eps.
-  float dirx = ux * uu + vx * vv + enx * nn;
-  float diry = uy * uu + vy * vv + eny * nn;
-  float dirz = uz * uu + vz * vv + enz * nn;
-  float px = epx + ewx * dxe + ehx * dye + dirx * P.eps;
-  float py = epy + ewy * dxe + ehy * dye + diry * P.eps;
-  float pz = epz + ewz * dxe + ehz * dye + dirz * P.eps;
+  float px, py, pz, dirx, diry, dirz, cr, cg, cb;
+  emit_photon(em, P, draws, px, py, pz, dirx, diry, dirz, cr, cg, cb);
 
   const int D = P.max_depth;
   const int counts[3] = {P.g0, P.g1, P.g2};
@@ -398,42 +466,8 @@ __device__ __forceinline__ void trace_photon(const float* __restrict__ s,
     const float hnx = (baxis == 0) ? bsign : 0.0f;
     const float hny = (baxis == 1) ? bsign : 0.0f;
     const float hnz = (baxis == 2) ? bsign : 0.0f;
-
-    // --- Russian roulette + bounce (photonmap.cl:236-254) ------------------
-    const float u_rr = draws(4 + 3 * d);
-    const float u1 = draws(5 + 3 * d);
-    const float u2 = draws(6 + 3 * d);
-    // the diffuse/mirror choice reads pz at the hit point
-    const bool diffuse = (pz > P.mirror_z) || (u_rr > P.rr);
-    if (diffuse) {
-      const float rd = sqrtf(u1);
-      const float phid = P.two_pi * u2;
-      const float duu = rd * cosf(phid);
-      const float dvv = rd * sinf(phid);
-      const float dnn = sqrtf(1.0f - rd * rd);
-      float bux, buy, buz, bvx, bvy, bvz;
-      build_base(hnx, hny, hnz, bux, buy, buz, bvx, bvy, bvz);
-      const bool on_floor = pz < P.tint_z;
-      const float tr = on_floor ? P.tint_r : 1.0f;
-      const float tg = on_floor ? P.tint_g : 1.0f;
-      const float tb = on_floor ? P.tint_b : 1.0f;
-      // the order c * tint * albedo of photon_pallas_wide.py:495-497
-      const float alb = kDiff ? s_alb[bslot] : P.albedo;
-      cr = cr * tr * alb;
-      cg = cg * tg * alb;
-      cb = cb * tb * alb;
-      dirx = bux * duu + bvx * dvv + hnx * dnn;
-      diry = buy * duu + bvy * dvv + hny * dnn;
-      dirz = buz * duu + bvz * dvv + hnz * dnn;
-    } else {
-      const float ndotd = hnx * dirx + hny * diry + hnz * dirz;
-      const float mdx = dirx - 2.0f * ndotd * hnx;
-      const float mdy = diry - 2.0f * ndotd * hny;
-      const float mdz = dirz - 2.0f * ndotd * hnz;
-      dirx = mdx;
-      diry = mdy;
-      dirz = mdz;
-    }
+    const bool diffuse = bounce<kDiff>(P, draws, d, hnx, hny, hnz, pz, s_alb,
+                                       bslot, dirx, diry, dirz, cr, cg, cb);
 
     deposit(d, btex, cr, cg, cb, (kDiff && diffuse) ? bslot : -1);
 

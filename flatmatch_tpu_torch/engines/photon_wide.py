@@ -77,9 +77,10 @@ INKERNEL_MODES = ("inkernel", "inkernel_i8")
 def unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to flatmatch_tpu_torch yet; the port runs "
-        f"the photon render and the fit (every splat, with either draw "
-        f"source) and the ambient-occlusion and radiosity engines on "
-        f"axis-aligned scenes (see ROADMAP.md)"
+        f"the photon render (both general engines on any scene, every "
+        f"splat on axis-aligned ones), the ambient-occlusion engine, and "
+        f"the fit and the radiosity engine on axis-aligned scenes (see "
+        f"ROADMAP.md)"
     )
 
 
@@ -141,10 +142,23 @@ def tail_batch_size(last_valid: int, batch_size: int,
 # --------------------------------------------------------------------------
 # plain PyTorch version
 # --------------------------------------------------------------------------
-def _trace_chunk(fields, group_counts, em, draw, n_valid, cfg, pid,
-                 albedo_aa=None):
-    """Trace photons `pid` (in-batch indices); draw(c) returns their draw
-    column c."""
+def aa_nearest(fields, group_counts):
+    """The nearest-hit query of `_trace_chunk` over the axis-aligned table:
+    nearest(p, dr) -> (best distance, MISS on a miss; texel id; hit normal
+    (x, y, z); the winning rect's table column)."""
+    def nearest(p, dr):
+        best, btex, baxis, bsign, bslot = nearest_hit(fields, group_counts,
+                                                      p, dr)
+        zero = torch.zeros_like(bsign)
+        hn = tuple(torch.where(baxis == a, bsign, zero) for a in range(3))
+        return best, btex, hn, bslot
+    return nearest
+
+
+def _trace_chunk(nearest, em, draw, n_valid, cfg, pid, albedo_aa=None):
+    """Trace photons `pid` (in-batch indices) with the nearest-hit query
+    `nearest` (`aa_nearest`, or the general engine's); draw(c) returns
+    their draw column c."""
     D = cfg.max_depth
     eps = float(np.float32(cfg.self_intersect_eps))
     two_pi = float(np.float32(TWO_PI_REF))
@@ -182,19 +196,14 @@ def _trace_chunk(fields, group_counts, em, draw, n_valid, cfg, pid,
     alive = (pid < n_valid).to(torch.float32)
     idx, col, ridx = [], [], []
     for d in range(D):
-        best, btex, baxis, bsign, bslot = nearest_hit(
-            fields, group_counts, (px, py, pz), (dirx, diry, dirz)
-        )
+        best, btex, (hnx, hny, hnz), bslot = nearest((px, py, pz),
+                                                      (dirx, diry, dirz))
         hit = best < MISS * 0.5
         alive = alive * hit.to(torch.float32)
         dist = torch.where(hit, best, torch.zeros_like(best))
         px = px + dirx * dist
         py = py + diry * dist
         pz = pz + dirz * dist
-        zero = torch.zeros_like(bsign)
-        hnx = torch.where(baxis == 0, bsign, zero)
-        hny = torch.where(baxis == 1, bsign, zero)
-        hnz = torch.where(baxis == 2, bsign, zero)
 
         # --- Russian roulette + bounce (photonmap.cl:236-254) --------------
         u_rr = draw(4 + 3 * d)
@@ -255,22 +264,23 @@ def trace_deposits_rng_plain(
     photons as photon_pallas_wide.trace_deposits_wide_rng. With `albedo_aa`
     [N] a diffuse hit on slot j multiplies by albedo_aa[j] instead of
     cfg.albedo, as the diff kernels do."""
-    return _trace_plain(fields, group_counts, em_vec, n_valid, batch_size,
-                        cfg, lambda pid: lambda c: rng.draw(pid, int(seed), c),
-                        albedo_aa)
+    return trace_plain(aa_nearest(fields, group_counts), em_vec, n_valid,
+                       batch_size, cfg,
+                       lambda pid: lambda c: rng.draw(pid, int(seed), c),
+                       albedo_aa)
 
 
-def _trace_plain(fields, group_counts, em_vec, n_valid, batch_size, cfg,
-                 draws, albedo_aa=None):
-    """The plain trace of a batch in chunks of PLAIN_CHUNK photons;
-    draws(pid) gives the draw function of photons pid."""
-    dev = fields.device
+def trace_plain(nearest, em_vec, n_valid, batch_size, cfg, draws,
+                albedo_aa=None, chunk=PLAIN_CHUNK):
+    """The plain trace of a batch on em_vec's device in chunks of `chunk`
+    photons, with the nearest-hit query `nearest`; draws(pid) gives the
+    draw function of photons pid."""
     idx, col, ridx = [], [], []
-    for c0 in range(0, int(batch_size), PLAIN_CHUNK):
-        pid = torch.arange(c0, min(c0 + PLAIN_CHUNK, int(batch_size)),
-                           dtype=torch.int64, device=dev)
-        i, c, r = _trace_chunk(fields, group_counts, em_vec, draws(pid),
-                               int(n_valid), cfg, pid, albedo_aa)
+    for c0 in range(0, int(batch_size), int(chunk)):
+        pid = torch.arange(c0, min(c0 + int(chunk), int(batch_size)),
+                           dtype=torch.int64, device=em_vec.device)
+        i, c, r = _trace_chunk(nearest, em_vec, draws(pid), int(n_valid),
+                               cfg, pid, albedo_aa)
         idx.append(i)
         col.append(c)
         ridx.append(r)
@@ -294,7 +304,7 @@ def stream_rows(idx: torch.Tensor, col: torch.Tensor, block: int,
 
 
 def uniform_draws(uniforms: torch.Tensor):
-    """The draws of `_trace_plain` from a [B, U] uniforms tensor: photon p
+    """The draws of `trace_plain` from a [B, U] uniforms tensor: photon p
     draws its column c from uniforms[p, c]."""
     return lambda pid: lambda c: uniforms[pid, c]
 
@@ -307,9 +317,9 @@ def trace_uniforms_plain(
     """`trace_deposits_rng_plain` with the draws passed in: photon p draws
     column c from uniforms[p, c] ([B, U] f32). Returns photon-major (idx
     [B, D], col [B, D, 3], ridx [B, D])."""
-    return _trace_plain(fields, group_counts, em_vec, n_valid,
-                        uniforms.shape[0], cfg, uniform_draws(uniforms),
-                        albedo_aa)
+    return trace_plain(aa_nearest(fields, group_counts), em_vec, n_valid,
+                       uniforms.shape[0], cfg, uniform_draws(uniforms),
+                       albedo_aa)
 
 
 def trace_deposits_wide_plain(

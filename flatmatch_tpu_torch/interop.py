@@ -1,10 +1,12 @@
-"""Scene tables carried across from the JAX package.
+"""Scene tables carried across from the JAX package, and back.
 
 The renderer has no weights: the state both packages share is the packed
 scene, the config and, for the fit, its parameters. These take the JAX
-package's `AARectsDev` and `EmittersDev` fields and fit parameters as numpy
-arrays (`np.asarray` of each field) and build the port's tensors, so both
-packages can be fed identical state.
+package's `AARectsDev`, `RectsDev` (and its `scene_matrix`) and
+`EmittersDev` fields and fit parameters as numpy arrays (`np.asarray` of
+each field) and build the port's tensors, so both packages can be fed
+identical state; `to_jax_rects` gives the port's rect table back as numpy
+arrays in `RectsDev`'s field order.
 """
 from __future__ import annotations
 
@@ -12,7 +14,9 @@ import numpy as np
 import torch
 
 from .ops.aa_scene import F_AA, AARects
-from .ops.device_scene import Emitters, emitters_from_numpy
+from .ops.device_scene import (
+    Emitters, Rects, emitters_from_numpy, rects_from_numpy,
+)
 
 
 def from_jax_aa(fields_np, group_counts, perm, device="cpu") -> AARects:
@@ -28,6 +32,27 @@ def from_jax_aa(fields_np, group_counts, perm, device="cpu") -> AARects:
         group_counts=gc,
         perm=np.asarray(perm, np.int32),
     )
+
+
+def from_jax_rects(*fields_np, device="cpu") -> Rects:
+    """`RectsDev` fields, in its field order (pos, wvec, hvec, n, w_unit,
+    h_unit, wlen, hlen, n_off, base, wtiles, htiles) -> `Rects`."""
+    return rects_from_numpy(device, **dict(zip(Rects._fields, fields_np)))
+
+
+def to_jax_rects(rects: Rects) -> tuple:
+    """`Rects` -> numpy arrays in `RectsDev`'s field order
+    (`RectsDev(*map(jnp.asarray, to_jax_rects(r)))` builds the JAX one)."""
+    return tuple(t.cpu().numpy() for t in rects)
+
+
+def from_jax_scene_matrix(matrix_np, device="cpu") -> torch.Tensor:
+    """The narrow kernel's [18, N] `scene_matrix` -> the port's table
+    (engines/photon_narrow.py)."""
+    m = np.array(matrix_np, np.float32)
+    if m.ndim != 2 or m.shape[0] != 18:
+        raise ValueError(f"expected an [18, N] table, got {m.shape}")
+    return torch.from_numpy(m).to(device)
 
 
 def from_jax_emitters(pos, wvec, hvec, n, color, is_window, area, counts,

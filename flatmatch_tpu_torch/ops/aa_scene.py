@@ -8,7 +8,8 @@ by normal axis so the kernel runs one rect loop per group:
   axis 1 (normal +-y): span u along x, v along z
   axis 2 (normal +-z): span u along x, v along y
 
-`pack_aa` returns None when a rect is not axis-aligned in this exact form.
+`pack_aa` returns None when a rect is not axis-aligned in this exact form,
+or when a texel id reaches MAX_TEXELS.
 """
 from __future__ import annotations
 
@@ -20,6 +21,12 @@ import torch
 from ..scene.rectangle import Rect, length_f32
 
 f32 = np.float32
+
+# Texel ids below this are exact in float32. The axis-aligned table and the
+# narrow kernel's table store texel bases as f32, so a scene whose arena
+# reaches it gets no table here, and the photon render sends it to the
+# general engine (render.run_engine).
+MAX_TEXELS = 1 << 24
 
 # u/v coordinate axes per normal-axis group
 GROUP_UV = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
@@ -97,8 +104,8 @@ def pack_aa(rects: List[Rect], device="cpu") -> Optional[AARects]:
             ]
         )
     max_id = max((r.base + r.wtiles * r.htiles for r in rects), default=0)
-    if max_id >= (1 << 24):
-        return None  # the table stores texel bases as exact f32 integers
+    if max_id >= MAX_TEXELS:
+        return None
     rows = groups[0] + groups[1] + groups[2]
     fields = np.asarray(rows, f32).T.copy()
     return AARects(

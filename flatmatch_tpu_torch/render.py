@@ -2,9 +2,9 @@
 compile -> geometry JSON -> illumination engine -> per-wall lightmap tiles
 (main.c:17-101).
 
-Counterpart of flatmatch_tpu/render.py for three engines on axis-aligned
-scenes: the photon render (then exposure normalization), ambient occlusion
-(fused by default, chunked with cfg.ao.fused off) and radiosity.
+Counterpart of flatmatch_tpu/render.py for four engines: the photon render
+(photon_pallas and photon_xla, then exposure normalization), ambient
+occlusion and radiosity (`run_engine` says which route runs where).
 Every function that touches tensors takes an explicit `device`.
 """
 from __future__ import annotations
@@ -99,23 +99,38 @@ def downsample_supersampled(
 def run_engine(scene: geometry.Scene, cfg: RenderConfig,
                device="cuda") -> np.ndarray:
     """Run `cfg.engine` on `device` and return the [num_texels, 3] arena
-    (main.c:60-79). Ported engines: photon_pallas (then the exposure
-    normalization) with every splat, in-kernel (`inkernel_i8`, `inkernel`)
-    or deposit-stream (`fused`, the library default, `fused_i8`,
-    `scatter`, `bucket`, `bucket_exact`), at either draw source (the device
-    RNG, or the threefry draws, the library default); ambient_occlusion and
-    radiosity."""
+    (main.c:60-79), dispatching as flatmatch_tpu/render.py:146-261 does on
+    a TPU:
+
+    - photon_pallas: the axis-aligned engine (engines/photon_wide.py) with
+      every splat (`inkernel_i8`, `inkernel`, `fused`, `fused_i8`,
+      `scatter`, `bucket`, `bucket_exact`) at either draw source; on a
+      scene that `pack_aa` gives no table, the narrow kernel
+      (engines/photon_narrow.py); on an arena of 2^24 texels or more, the
+      general engine;
+    - photon_xla: the general engine (engines/photon.py);
+    - ambient_occlusion: fused by default, chunked with cfg.ao.fused off;
+      on a scene without a table, the general AO (engines/ao_general.py);
+    - radiosity, on scenes with a table.
+
+    The general engines draw threefry and splat exactly whatever cfg.splat
+    and cfg.device_rng say, as in the JAX package. The photon engines'
+    arenas get the exposure normalization. No engine falls back to another
+    device: only a kernel's plain version runs, for CPU tensors."""
     from .engines import photon_wide
-    from .ops.aa_scene import pack_aa
+    from .ops import aa_scene
+    from .ops.device_scene import pack_rects
+    from .utils.progress import warn
 
     if cfg.engine is Engine.AMBIENT_OCCLUSION:
         from .engines import ao
 
-        aa = pack_aa(scene.walls, device=device)
+        aa = aa_scene.pack_aa(scene.walls, device=device)
         if aa is None:
-            raise unsupported("ambient occlusion of a scene with "
-                              "non-axis-aligned rects or a texel arena of "
-                              "2^24 or more")
+            from .engines import ao_general
+
+            return ao_general.render_ao(
+                scene, pack_rects(scene.walls, device=device), cfg.ao)
         if cfg.ao.fused:
             return ao.render_ao_fused(scene, aa, cfg.ao)
         return ao.render_ao(scene, aa, cfg.ao)
@@ -123,19 +138,35 @@ def run_engine(scene: geometry.Scene, cfg: RenderConfig,
         from .engines import radiosity
 
         return radiosity.render_radiosity(scene, cfg.radiosity, device)
-    if cfg.engine is not Engine.PHOTON_PALLAS:
+    if cfg.engine not in (Engine.PHOTON_PALLAS, Engine.PHOTON_XLA):
         raise unsupported(f"engine {cfg.engine.value!r}")
-    aa = pack_aa(scene.walls, device=device)
-    if aa is None:
-        raise unsupported("a scene with non-axis-aligned rects or a texel "
-                          "arena of 2^24 or more")
     emitters = pack_emitters(
         scene, cfg.photon.samples_per_area, cfg.photon.window_color,
         cfg.photon.light_color, device=device,
     )
-    lightmap = photon_wide.render_photons(
-        emitters, scene.num_texels, cfg.photon, aa
-    )
+    use_pallas = cfg.engine is Engine.PHOTON_PALLAS
+    if use_pallas and scene.num_texels >= aa_scene.MAX_TEXELS:
+        warn("texel arena exceeds 2^24 (f32-exact kernel ids); using the "
+             "general engine")
+        use_pallas = False
+    aa = aa_scene.pack_aa(scene.walls, device=device) if use_pallas else None
+    if use_pallas and aa is not None:
+        lightmap = photon_wide.render_photons(
+            emitters, scene.num_texels, cfg.photon, aa)
+    else:
+        rects = pack_rects(scene.walls, device=device)
+        if use_pallas:
+            from .engines import photon_narrow
+
+            warn("scene has non-axis-aligned rects; wide AA engine "
+                 "unavailable")
+            lightmap = photon_narrow.render_photons(
+                rects, emitters, scene.num_texels, cfg.photon)
+        else:
+            from .engines import photon
+
+            lightmap = photon.render_photons(
+                rects, emitters, scene.num_texels, cfg.photon)
     scale = exposure_scale(
         scene, cfg.photon.samples_per_area, cfg.photon.exposure
     )

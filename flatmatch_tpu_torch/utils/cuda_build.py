@@ -58,6 +58,7 @@ ENTRY_POINTS = {
     "fm_trace_deposits_wide_diff": [_P] * 7 + [_I] * 10 + [_F] * 9 + [_P],
     "fm_fused_splat_i8": [_P] * 4 + [_I] * 2 + [_F] * 2 + [_P],
     "fm_fused_splat": [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P],
+    "fm_trace_deposits_narrow": [_P] * 5 + [_I] * 4 + [_F] * 9 + [_P],
     "fm_threefry_uniform": [_U32, _U32, _I64, _P, _P],
     "fm_threefry_uniform_t": [_U32, _U32, _I, _I, _P, _P],
 }

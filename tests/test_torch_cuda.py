@@ -1145,3 +1145,100 @@ def test_threefry_tier_wrappers_raise_on_a_failed_launch(dev, kernel,
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         run()
     assert wrapper.launches == before
+
+
+# --------------------------------------------------------------------------
+# the general route: trace_deposits_narrow.cu (row 11) and the general
+# engine's reruns
+# --------------------------------------------------------------------------
+def _narrow_inputs(dev, deg, batch):
+    """tiny turned `deg` degrees: its narrow table, emitter 0's vector and
+    the threefry uniforms of global batch 3 in the [U, B] layout."""
+    from chip_smoke import rotated_scene
+    from flatmatch_tpu_torch.engines import photon_narrow as pn
+    from flatmatch_tpu_torch.ops import threefry
+    from flatmatch_tpu_torch.ops.device_scene import pack_rects
+
+    scene = rotated_scene(compile_scene(str(FIXTURES / "tiny.png"), 30.0,
+                                        CFG)[0], deg)
+    ph = CFG.photon
+    em = pack_emitters(scene, ph.samples_per_area, ph.window_color,
+                       ph.light_color, device=dev)
+    u_t = threefry.batch_uniforms(ph.seed, 3, batch, 28, dev,
+                                  transposed=True)
+    return pn.narrow_table(pack_rects(scene.walls, device=dev)), \
+        pw.emitter_vector(em, 0), u_t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg", [0, 30])
+@pytest.mark.parametrize("repeat", [1, 400])
+def test_narrow_kernel_matches_plain(dev, deg, repeat):
+    """Row 11 against its plain version, with a dead tail (n_valid < B):
+    ids equal on >= 99.9% of rows, colors within 1e-5, and two runs
+    bit-identical. repeat=400 repeats every rect in place (5,200 rects,
+    374 KB of table): the device-memory instance, whose ties go to the
+    first copy, so it equals the shared-memory instance on the real
+    table."""
+    from flatmatch_tpu_torch.engines import photon_narrow as pn
+
+    B, nv = 8192, 8000
+    table, ev, u_t = _narrow_inputs(dev, deg, B)
+    small = pn.trace_deposits_narrow(table, ev, u_t, nv, CFG.photon)
+    if repeat > 1:
+        table = table.repeat_interleave(repeat, dim=1).contiguous()
+        assert 4 * 18 * table.shape[1] > 232448
+    before = pn.trace_deposits_narrow.launches
+    idx, col = pn.trace_deposits_narrow(table, ev, u_t, nv, CFG.photon)
+    idx2, col2 = pn.trace_deposits_narrow(table, ev, u_t, nv, CFG.photon)
+    torch.cuda.synchronize()
+    assert pn.trace_deposits_narrow.launches == before + 2
+    assert torch.equal(idx, idx2) and torch.equal(col, col2)
+    assert torch.equal(idx, small[0]) and torch.equal(col, small[1])
+    pidx, pcol = pn.trace_deposits_narrow_plain(table, ev, u_t.t(), nv,
+                                                CFG.photon)
+    assert pcol.sum().item() > 0 and (col[nv:] == 0).all()
+    assert (idx == pidx).all(1).float().mean().item() >= 0.999
+    np.testing.assert_allclose(col.cpu().numpy(), pcol.cpu().numpy(),
+                               rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_narrow_wrapper_raises_on_a_failed_launch(dev, monkeypatch):
+    """A CUDA error from the entry point raises; nothing falls back to the
+    plain version and no launch is counted."""
+    from flatmatch_tpu_torch.engines import photon_narrow as pn
+    from flatmatch_tpu_torch.utils import cuda_build
+
+    table, ev, u_t = _narrow_inputs(dev, 30, 256)
+    cuda_build.load_library()
+    monkeypatch.setattr(cuda_build, "_lib", _FailingLibrary())
+    before = pn.trace_deposits_narrow.launches
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        pn.trace_deposits_narrow(table, ev, u_t, 200, CFG.photon)
+    assert pn.trace_deposits_narrow.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["photon_pallas", "photon_xla"])
+def test_general_routes_rerun_bit_identical(dev, engine):
+    """Rotated tiny through the narrow kernel's route and the general
+    engine: two card renders give the same bits (the fixed-point splat has
+    no float atomics), and each agrees with the CPU render (the plain
+    versions) texel by texel at the bands of test_torch_general.py's
+    test_general_routes_match_jax_run_engine: >= 99% of texels within rtol
+    1e-4, the total within 1e-3."""
+    from chip_smoke import rotated_scene
+    from flatmatch_tpu_torch.config import Engine
+
+    cfg = CFG.replace(engine=Engine(engine))
+    scene = rotated_scene(compile_scene(str(FIXTURES / "tiny.png"), 30.0,
+                                        cfg)[0], 30)
+    a = run_engine(scene, cfg, dev)
+    b = run_engine(scene, cfg, dev)
+    assert np.array_equal(a, b) and a.sum() > 0
+    c = run_engine(scene, cfg, "cpu")
+    assert a.shape == c.shape and np.isfinite(a).all()
+    close = np.isclose(a, c, rtol=1e-4, atol=1e-6 * c.max())
+    assert close.mean() >= 0.99, f"only {close.mean():.4%} close"
+    np.testing.assert_allclose(a.sum(), c.sum(), rtol=1e-3)

@@ -106,7 +106,7 @@ def test_supersample_render(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--engine", "photon_xla"],
+    ["--engine", "photon_xla", "--checkpoint", "ck.npz"],
     ["--engine", "photon_oracle"],
     ["--profile", "prof"],
     ["--process-id", "0"],
@@ -128,14 +128,22 @@ def test_cli_refuses_what_the_slice_does_not_run(flags, tmp_path, capsys):
 
 @pytest.mark.parametrize("change", [
     dict(engine=Engine.PHOTON_ORACLE),
-    dict(engine=Engine.PHOTON_XLA, photon=dict(device_rng=False)),
-    dict(engine=Engine.PHOTON_XLA, photon=dict(splat="inkernel")),
+    dict(engine=Engine.PHOTON_ORACLE, photon=dict(device_rng=False)),
+    dict(engine=Engine.PHOTON_ORACLE, photon=dict(splat="inkernel")),
+    dict(engine=Engine.RADIOSITY, no_table=True),
 ])
-def test_library_refuses_what_the_slice_does_not_run(change):
-    """The general engines stay unported, whatever the photon route."""
+def test_library_refuses_what_the_slice_does_not_run(change, monkeypatch):
+    """The NumPy oracle engine stays unported, whatever the photon route,
+    and so does radiosity of a scene without an axis-aligned table (the
+    general form factors); the general photon engines run
+    (tests/test_torch_general.py)."""
     cfg = _cfg(DEFAULT_CONFIG).replace(engine=change["engine"])
     cfg = cfg.replace(photon=dataclasses.replace(cfg.photon,
                                                  **change.get("photon", {})))
     scene, _ = compile_scene(TINY, 30.0, cfg)
+    if change.get("no_table"):
+        monkeypatch.setattr(
+            "flatmatch_tpu_torch.engines.radiosity.pack_aa",
+            lambda rects, device="cpu": None)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run_engine(scene, cfg, device="cpu")

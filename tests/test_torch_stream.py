@@ -371,14 +371,31 @@ def test_tail_shrink_bit_identical(device_rng, splat, monkeypatch):
     dict(splat="inkernel_i8", device_rng=False),
 ])
 def test_library_refuses_what_stays_unported(photon, monkeypatch):
-    """The in-kernel routes run on axis-aligned scenes; a scene that needs
-    the general engine (pack_aa gives no table) is still refused."""
+    """A scene that needs the general engine (pack_aa gives no table) now
+    renders through the narrow kernel's route under each of these photon
+    settings (the general route ignores --splat and --device-rng, as the
+    JAX package's does), with a finite, non-zero arena; the fit of such a
+    scene (the general differentiable renderer) is still refused."""
     cfg = _port_cfg(photons_per_batch=1024, **photon)
     scene, _ = compile_scene(TINY, 30.0, cfg)
     monkeypatch.setattr("flatmatch_tpu_torch.ops.aa_scene.pack_aa",
                         lambda walls, device="cpu": None)
+    narrow = importlib.import_module(
+        "flatmatch_tpu_torch.engines.photon_narrow")
+    calls = []
+    real = narrow.render_photons
+    monkeypatch.setattr(narrow, "render_photons",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    out = run_engine(scene, cfg, device="cpu")
+    assert calls == [1]
+    assert np.isfinite(out).all() and out.sum() > 0
+    pfit = importlib.import_module("flatmatch_tpu_torch.diff.fit")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_engine(scene, cfg, device="cpu")
+        ph = cfg.photon
+        pfit.fit_materials(np.zeros((scene.num_texels, 3), f32),
+                           pack_emitters(scene, 3000.0, ph.window_color,
+                                         ph.light_color),
+                           scene.num_texels, ph, aa=None)
 
 
 @pytest.mark.parametrize("photon", [
