@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from flatmatch_tpu_torch/csrc and drives the port's
-seven groups of paths on the card:
+eight groups of paths on the card:
 - the render: the production kernel against its plain PyTorch version,
   `tests/fixtures/mini.png` through the port's CLI at its defaults, the
   physics against the reference C engine's golden lightmap, and a 4x4
@@ -53,7 +53,12 @@ seven groups of paths on the card:
   tiling at full budget and 8 batches of `photon_xla` on it, the narrow
   kernel's device-memory instance on rotated 13x13, and the general AO of
   mini and rotated mini against the reference build's dump (phases
-  31-35).
+  31-35);
+- the redesigned trace (csrc/trace_wide.cuh): every instance of it (rows
+  1-10) on mini, on the 4x4 tiling and, in its device-memory instances, on
+  mini tiled 13x13, against its plain version and rerun bit for bit, with
+  its time per batch beside its bound, its registers and its blocks per SM
+  (phase 36).
 Any failure exits non-zero. The line before the card's name lists every
 kernel with its launches on its path, its error against its plain version,
 its time, the plain version's time and its bound. The last line of standard
@@ -935,7 +940,7 @@ def stream_phases(dev, results, cfg, s, s5, s6):
 
     # 18. the four kernels against their plain versions on mini ------------
     f, gc, ev = s["aa_c"].fields, s["aa_c"].group_counts, s["ev"]
-    u = threefry.batch_uniforms(ph.seed, 0, B, U, dev)
+    u = threefry.batch_uniforms(ph.seed, 0, B, U, dev, transposed=True)
     traces = {
         "trace_deposits_wide_rng": (
             lambda: pw.trace_deposits_wide_rng(f, gc, ev, s["seed"], B, B,
@@ -944,7 +949,7 @@ def stream_phases(dev, results, cfg, s, s5, s6):
                 f, gc, ev, s["seed"], B, B, ph)[:2], block)),
         "trace_deposits_wide": (
             lambda: pw.trace_deposits_wide(f, gc, ev, u, B, ph, block),
-            lambda: pw.trace_deposits_wide_plain(f, gc, ev, u, B, ph,
+            lambda: pw.trace_deposits_wide_plain(f, gc, ev, u.t(), B, ph,
                                                  block)),
     }
     k18, streams = {}, {}
@@ -1092,13 +1097,12 @@ def stream_phases(dev, results, cfg, s, s5, s6):
         wall_s=wall, photons_per_s=photons / wall,
         launches={k: launches[k] for k in ("trace_deposits_wide",
                                            "fused_splat")})
-    # the threefry route's split: draws (torch int64 ops), the uniforms'
-    # transposed copy, the trace kernel and the splat, per batch and per
+    # the threefry route's split: the draws (in the [U, B] layout the
+    # trace reads), the trace kernel and the splat, per batch and per
     # render, and a profiled run_engine
     cfg_tf = route(cfg, False, "fused")
-    draw_ms = cuda_ms(lambda: threefry.batch_uniforms(ph.seed, 0, B, U, dev),
-                      5)
-    copy_ms = cuda_ms(lambda: u.t().contiguous(), 20)
+    draw_ms = cuda_ms(lambda: threefry.batch_uniforms(ph.seed, 0, B, U, dev,
+                                                      transposed=True), 5)
     sync()
     t0 = time.perf_counter()
     run_engine(s["scene"], cfg_tf, dev)
@@ -1106,7 +1110,6 @@ def stream_phases(dev, results, cfg, s, s5, s6):
     engine_s = time.perf_counter() - t0
     cli20["fused_threefry"].update(
         run_engine_s=engine_s, draws_ms_per_batch=draw_ms,
-        transpose_ms_per_batch=copy_ms,
         trace_ms_per_batch=k18["trace_deposits_wide"]["ms"],
         splat_ms_per_batch=k18["fused_splat"]["ms"],
         draws_s_per_render=draw_ms * n_batches / 1e3,
@@ -1121,7 +1124,7 @@ def stream_phases(dev, results, cfg, s, s5, s6):
     # every stream kernel on batch 0 of the tiling: ms, plain ms, bound
     f6, gc6, ev6 = s6["aa_c"].fields, s6["aa_c"].group_counts, s6["ev"]
     T6 = s6["total_c"]
-    u6 = threefry.batch_uniforms(ph.seed, 0, B, U, dev)
+    u6 = threefry.batch_uniforms(ph.seed, 0, B, U, dev, transposed=True)
     runs6 = {
         "trace_deposits_wide_rng": (
             lambda: pw.trace_deposits_wide_rng(f6, gc6, ev6, s6["seed"], B,
@@ -1130,8 +1133,8 @@ def stream_phases(dev, results, cfg, s, s5, s6):
                 f6, gc6, ev6, s6["seed"], B, B, ph)[:2], block)),
         "trace_deposits_wide": (
             lambda: pw.trace_deposits_wide(f6, gc6, ev6, u6, B, ph, block),
-            lambda: pw.trace_deposits_wide_plain(f6, gc6, ev6, u6, B, ph,
-                                                 block)),
+            lambda: pw.trace_deposits_wide_plain(f6, gc6, ev6, u6.t(), B,
+                                                 ph, block)),
     }
     k21 = {}
     for name, (run, plain) in runs6.items():
@@ -1205,7 +1208,8 @@ def inkernel_runs(s, cfg, dev, power):
     f, gc, ev = s["aa_c"].fields, s["aa_c"].group_counts, s["ev"]
     T, seed = s["total_c"], s["seed"]
     u = threefry.batch_uniforms(ph.seed, 0, B,
-                                pw.uniforms_per_photon(ph.max_depth), dev)
+                                pw.uniforms_per_photon(ph.max_depth), dev,
+                                transposed=True)
     d = diff_setup(s, cfg, dev, power)
     fixed = fixed_pair(ph, torch.tensor([power], device=dev), d["alb"], B)
     return u, {
@@ -1215,10 +1219,11 @@ def inkernel_runs(s, cfg, dev, power):
                                                       ph, T)),
         "trace_splat_wide_i8": (
             lambda: pw.trace_splat_wide_i8(f, gc, ev, u, B, ph, T),
-            lambda: pw.trace_splat_wide_plain(f, gc, ev, u, B, ph, T, True)),
+            lambda: pw.trace_splat_wide_plain(f, gc, ev, u.t(), B, ph, T,
+                                              True)),
         "trace_splat_wide_f32": (
             lambda: pw.trace_splat_wide_f32(f, gc, ev, u, B, ph, T),
-            lambda: pw.trace_splat_wide_plain(f, gc, ev, u, B, ph, T,
+            lambda: pw.trace_splat_wide_plain(f, gc, ev, u.t(), B, ph, T,
                                               False)),
         "trace_splat_wide_diff_rng_f32": (
             lambda: pw.trace_splat_wide_diff_rng_f32(
@@ -1236,8 +1241,8 @@ def inkernel_bounces(s, cfg, u):
     B, D = ph.photons_per_batch, ph.max_depth
     block = pw.stream_block(B)
     _, col = pw.trace_deposits_wide_plain(s["aa_c"].fields,
-                                          s["aa_c"].group_counts, s["ev"], u,
-                                          B, ph, block)
+                                          s["aa_c"].group_counts, s["ev"],
+                                          u.t(), B, ph, block)
     return traced_bounces(s, cfg, B), stream_bounces(col, B, D, block)
 
 
@@ -1502,7 +1507,6 @@ def diff_uniform_runs(s, cfg, dev, power, seed=7):
                                   transposed=True)
     fixed = fixed_pair(ph, torch.tensor([power], device=dev), d["alb"], B)
     block = diff_block(B)
-    kw = dict(transposed=True)
 
     def plain():
         return pw.trace_uniforms_plain(f, gc, d["ev"], u_t.t(), B, ph,
@@ -1516,19 +1520,19 @@ def diff_uniform_runs(s, cfg, dev, power, seed=7):
     return d, {
         "trace_deposits_wide_diff": (
             lambda: pw.trace_deposits_wide_diff(f, gc, d["alb"], d["ev"], u_t,
-                                                B, ph, block, **kw),
+                                                B, ph, block),
             plain_stream),
         "trace_splat_wide_diff_i8": (
             lambda: pw.trace_splat_wide_diff_i8(f, gc, d["alb"], d["ev"], u_t,
-                                                B, ph, T, d["inv"], **kw),
+                                                B, ph, T, d["inv"]),
             lambda: pw.splat_i8_plain(*plain()[:2], T, d["inv"].item())),
         "trace_splat_wide_diff_f32": (
             lambda: pw.trace_splat_wide_diff_f32(f, gc, d["alb"], d["ev"],
-                                                 u_t, B, ph, T, fixed, **kw),
+                                                 u_t, B, ph, T, fixed),
             lambda: pw.splat_f32_plain(*plain()[:2], T)),
         "trace_fold_wide": (
             lambda: pw.trace_fold_wide(f, gc, d["alb"], d["ev"], d["g"], u_t,
-                                       B, ph, n, **kw),
+                                       B, ph, n),
             lambda: pw.fold_plain(*plain(), d["g"], n)),
     }
 
@@ -1701,12 +1705,10 @@ def threefry_phases(dev, results, cfg, s, s6, make_layout):
     same = {
         "trace_splat_wide_diff_i8": (
             "trace_splat_wide_i8",
-            pw.trace_splat_wide_i8(f, gc, ev, u_t, B, ph, T,
-                                   transposed=True)),
+            pw.trace_splat_wide_i8(f, gc, ev, u_t, B, ph, T)),
         "trace_splat_wide_diff_f32": (
             "trace_splat_wide_f32",
-            pw.trace_splat_wide_f32(f, gc, ev, u_t, B, ph, T,
-                                    transposed=True)),
+            pw.trace_splat_wide_f32(f, gc, ev, u_t, B, ph, T)),
     }
     for name, (other, want) in same.items():
         got = runs1[name][0]()
@@ -1714,8 +1716,7 @@ def threefry_phases(dev, results, cfg, s, s6, make_layout):
         check(torch.equal(got, want), f"{name} at albedo 0.9 and power 1 "
               f"differs from {other}")
     idx, col, _ = runs1["trace_deposits_wide_diff"][0]()
-    sidx, scol = pw.trace_deposits_wide(f, gc, ev, u_t, B, ph, d1["block"],
-                                        transposed=True)
+    sidx, scol = pw.trace_deposits_wide(f, gc, ev, u_t, B, ph, d1["block"])
     sync()
     check(torch.equal(idx, sidx) and torch.equal(col, scol),
           "trace_deposits_wide_diff at albedo 0.9 and power 1 differs from "
@@ -2188,11 +2189,12 @@ def _fit_cfg(ph, flags):
     return dc.replace(ph, device_rng=device_rng, splat=splat)
 
 
-def part_a_checks(s, cfg, dev, batch=8192):
-    """Every trace instance and both folds on one batch of `s` (a table
-    past shared memory: the global-table instances) against their plain
-    versions: the 7-bit sums and streams equal, the f32 sums within 1e-5,
-    the folds within rtol 1e-4 (another f32 order)."""
+def trace_instances(s, cfg, dev, batch, plain=True):
+    """Every instance of the shared trace (rows 1-10) on one batch of `s`,
+    the diff ones at power 1.3: (name -> (kernel call, its plain
+    version's output on the card, None without `plain`), the traced
+    bounces of the batch with the counter hash and with the threefry
+    uniforms: the plain traces', or without `plain` the stream kernels')."""
     import dataclasses as dc
 
     import numpy as np
@@ -2211,84 +2213,234 @@ def part_a_checks(s, cfg, dev, batch=8192):
     d = diff_setup(s, cfg, dev, 1.3)
     alb, dev_ev, inv, g = d["alb"], d["ev"], d["inv"], d["g"]
     u = threefry.batch_uniforms(ph.seed, 0, B, pw.uniforms_per_photon(D),
-                                dev)
+                                dev, transposed=True)
     fixed = fixed_pair(ph, torch.tensor([1.3], device=dev), alb, B)
     block, dblock = pw.stream_block(B), diff_block(B)
+    calls = {
+        "trace_splat_wide_rng_i8": lambda: pw.trace_splat_wide_rng_i8(
+            f, gc, ev, seed, B, B, ph, T),
+        "trace_splat_wide_rng_f32": lambda: pw.trace_splat_wide_rng_f32(
+            f, gc, ev, seed, B, B, ph, T),
+        "trace_splat_wide_i8": lambda: pw.trace_splat_wide_i8(
+            f, gc, ev, u, B, ph, T),
+        "trace_splat_wide_f32": lambda: pw.trace_splat_wide_f32(
+            f, gc, ev, u, B, ph, T),
+        "trace_deposits_wide_rng": lambda: pw.trace_deposits_wide_rng(
+            f, gc, ev, seed, B, B, ph, block),
+        "trace_deposits_wide": lambda: pw.trace_deposits_wide(
+            f, gc, ev, u, B, ph, block),
+        "trace_deposits_wide_diff": lambda: pw.trace_deposits_wide_diff(
+            f, gc, alb, dev_ev, u, B, ph, dblock),
+        "trace_splat_wide_diff_rng_i8":
+            lambda: pw.trace_splat_wide_diff_rng_i8(
+                f, gc, alb, dev_ev, seed, B, B, ph, T, inv),
+        "trace_splat_wide_diff_rng_f32":
+            lambda: pw.trace_splat_wide_diff_rng_f32(
+                f, gc, alb, dev_ev, seed, B, B, ph, T, fixed),
+        "trace_splat_wide_diff_i8": lambda: pw.trace_splat_wide_diff_i8(
+            f, gc, alb, dev_ev, u, B, ph, T, inv),
+        "trace_splat_wide_diff_f32": lambda: pw.trace_splat_wide_diff_f32(
+            f, gc, alb, dev_ev, u, B, ph, T, fixed),
+        "trace_fold_wide_rng": lambda: pw.trace_fold_wide_rng(
+            f, gc, alb, dev_ev, g, seed, B, B, ph, n),
+        "trace_fold_wide": lambda: pw.trace_fold_wide(
+            f, gc, alb, dev_ev, g, u, B, ph, n),
+    }
+    if not plain:
+        return ({name: (call, None) for name, call in calls.items()},
+                stream_bounces(calls["trace_deposits_wide_rng"]()[1], B, D,
+                               block),
+                stream_bounces(calls["trace_deposits_wide"]()[1], B, D,
+                               block))
     inv_s = float(np.float32(1.0 / pw.splat_color_scale(ph)))
     hp = pw.trace_deposits_rng_plain(f, gc, ev, seed, B, B, ph)
-    up = pw.trace_uniforms_plain(f, gc, ev, u, B, ph)
+    up = pw.trace_uniforms_plain(f, gc, ev, u.t(), B, ph)
     hd = pw.trace_deposits_rng_plain(f, gc, dev_ev, seed, B, B, ph, alb)
-    ud = pw.trace_uniforms_plain(f, gc, dev_ev, u, B, ph, alb)
-    checks = {
-        "trace_splat_wide_rng_i8": (
-            pw.trace_splat_wide_rng_i8(f, gc, ev, seed, B, B, ph, T),
-            pw.splat_i8_plain(hp[0], hp[1], T, inv_s)),
-        "trace_splat_wide_rng_f32": (
-            pw.trace_splat_wide_rng_f32(f, gc, ev, seed, B, B, ph, T),
-            pw.splat_f32_plain(hp[0], hp[1], T)),
-        "trace_splat_wide_i8": (
-            pw.trace_splat_wide_i8(f, gc, ev, u, B, ph, T),
-            pw.splat_i8_plain(up[0], up[1], T, inv_s)),
-        "trace_splat_wide_f32": (
-            pw.trace_splat_wide_f32(f, gc, ev, u, B, ph, T),
-            pw.splat_f32_plain(up[0], up[1], T)),
-        "trace_deposits_wide_rng": (
-            pw.trace_deposits_wide_rng(f, gc, ev, seed, B, B, ph, block),
-            pw.stream_rows(hp[0], hp[1], block)),
-        "trace_deposits_wide": (
-            pw.trace_deposits_wide(f, gc, ev, u, B, ph, block),
-            pw.stream_rows(up[0], up[1], block)),
-        "trace_deposits_wide_diff": (
-            pw.trace_deposits_wide_diff(f, gc, alb, dev_ev, u, B, ph, dblock),
-            pw.stream_rows(ud[0], ud[1], dblock, ud[2])),
-        "trace_splat_wide_diff_rng_i8": (
-            pw.trace_splat_wide_diff_rng_i8(f, gc, alb, dev_ev, seed, B, B,
-                                            ph, T, inv),
-            pw.splat_i8_plain(hd[0], hd[1], T, inv.item())),
-        "trace_splat_wide_diff_rng_f32": (
-            pw.trace_splat_wide_diff_rng_f32(f, gc, alb, dev_ev, seed, B, B,
-                                             ph, T, fixed),
-            pw.splat_f32_plain(hd[0], hd[1], T)),
-        "trace_splat_wide_diff_i8": (
-            pw.trace_splat_wide_diff_i8(f, gc, alb, dev_ev, u, B, ph, T, inv),
-            pw.splat_i8_plain(ud[0], ud[1], T, inv.item())),
-        "trace_splat_wide_diff_f32": (
-            pw.trace_splat_wide_diff_f32(f, gc, alb, dev_ev, u, B, ph, T,
-                                         fixed),
-            pw.splat_f32_plain(ud[0], ud[1], T)),
-        "trace_fold_wide_rng": (
-            pw.trace_fold_wide_rng(f, gc, alb, dev_ev, g, seed, B, B, ph, n),
-            pw.fold_plain(*hd, g, n)),
-        "trace_fold_wide": (
-            pw.trace_fold_wide(f, gc, alb, dev_ev, g, u, B, ph, n),
-            pw.fold_plain(*ud, g, n)),
+    ud = pw.trace_uniforms_plain(f, gc, dev_ev, u.t(), B, ph, alb)
+    wants = {
+        "trace_splat_wide_rng_i8": pw.splat_i8_plain(hp[0], hp[1], T, inv_s),
+        "trace_splat_wide_rng_f32": pw.splat_f32_plain(hp[0], hp[1], T),
+        "trace_splat_wide_i8": pw.splat_i8_plain(up[0], up[1], T, inv_s),
+        "trace_splat_wide_f32": pw.splat_f32_plain(up[0], up[1], T),
+        "trace_deposits_wide_rng": pw.stream_rows(hp[0], hp[1], block),
+        "trace_deposits_wide": pw.stream_rows(up[0], up[1], block),
+        "trace_deposits_wide_diff": pw.stream_rows(ud[0], ud[1], dblock,
+                                                   ud[2]),
+        "trace_splat_wide_diff_rng_i8": pw.splat_i8_plain(hd[0], hd[1], T,
+                                                          inv.item()),
+        "trace_splat_wide_diff_rng_f32": pw.splat_f32_plain(hd[0], hd[1], T),
+        "trace_splat_wide_diff_i8": pw.splat_i8_plain(ud[0], ud[1], T,
+                                                      inv.item()),
+        "trace_splat_wide_diff_f32": pw.splat_f32_plain(ud[0], ud[1], T),
+        "trace_fold_wide_rng": pw.fold_plain(*hd, g, n),
+        "trace_fold_wide": pw.fold_plain(*ud, g, n),
     }
+
+    def bounces(col):
+        live = col.sum(-1) > 0
+        return int(live.sum().item()) + B - int(live[:, -1].sum().item())
+
+    return ({name: (call, wants[name]) for name, call in calls.items()},
+            bounces(hp[1]), bounces(up[1]))
+
+
+def instance_error(name, got, want, n):
+    """Hold one trace instance's output to its plain version's: the 7-bit
+    sums and the streams equal, the f32 sums within 1e-5, the folds
+    within rtol 1e-4 (another f32 order); returns the largest error."""
+    import torch
+
+    if name.startswith("trace_deposits"):
+        ok = all(torch.equal(x, y) for x, y in zip(got, want))
+        nonzero = want[1].sum().item() > 0
+        err = (got[1] - want[1]).abs().max().item()
+    elif name.startswith("trace_fold"):
+        top = want[0].abs().max().item()
+        ok = bool(((got[0] - want[0]).abs()
+                   <= 1e-4 * want[0].abs() + 1e-6 * top).all()) and \
+            abs(got[1].item() - want[1].item()) <= 1e-4 * abs(
+                want[1].item())
+        nonzero = top > 0
+        err = (got[0] - want[0]).abs().max().item()
+    elif got.dtype == torch.int32:
+        ok, nonzero = torch.equal(got, want), want.sum().item() > 0
+        err = (got - want).abs().max().item()
+    else:
+        ok = bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-5).all())
+        nonzero = want.sum().item() > 0
+        err = (got - want).abs().max().item()
+    check(ok and nonzero, f"{name} on {n} rects differs from its plain "
+          f"version (or is empty)")
+    return err
+
+
+def part_a_checks(s, cfg, dev, batch=8192):
+    """Every trace instance and both folds on one batch of `s` (a table
+    past shared memory: the global-table instances) against their plain
+    versions (instance_error's bands)."""
+    runs, _, _ = trace_instances(s, cfg, dev, batch)
+    got = {name: run() for name, (run, _) in runs.items()}
     sync()
-    out = {}
-    for name, (got, want) in checks.items():
-        if name.startswith("trace_deposits"):
-            ok = all(torch.equal(x, y) for x, y in zip(got, want))
-            nonzero = want[1].sum().item() > 0
-            err = (got[1] - want[1]).abs().max().item()
-        elif name.startswith("trace_fold"):
-            top = want[0].abs().max().item()
-            ok = bool(((got[0] - want[0]).abs()
-                       <= 1e-4 * want[0].abs() + 1e-6 * top).all()) and \
-                abs(got[1].item() - want[1].item()) <= 1e-4 * abs(
-                    want[1].item())
-            nonzero = top > 0
-            err = (got[0] - want[0]).abs().max().item()
-        elif got.dtype == torch.int32:
-            ok, nonzero = torch.equal(got, want), want.sum().item() > 0
-            err = (got - want).abs().max().item()
-        else:
-            ok = bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-5).all())
-            nonzero = want.sum().item() > 0
-            err = (got - want).abs().max().item()
-        check(ok and nonzero, f"{name} on {n} rects differs from its plain "
-              f"version (or is empty)")
-        out[name] = dict(photons=B, max_abs_err=err, equal=True)
-    return out
+    n = s["aa_c"].fields.shape[1]
+    return {name: dict(photons=batch, equal=True, max_abs_err=instance_error(
+        name, got[name], want, n)) for name, (_, want) in runs.items()}
+
+
+# --------------------------------------------------------------------------
+# the redesigned trace (36)
+# --------------------------------------------------------------------------
+# each instance's kernel template in the ptxas log, before its kSmem flag
+PTXAS_NAMES = {
+    "trace_splat_wide_rng_i8": "trace_splat_kernelI",
+    "trace_splat_wide_rng_f32": "trace_splat_wide_kernelINS_8HashDrawELb1E",
+    "trace_splat_wide_i8": "trace_splat_wide_kernelINS_11UniformDrawELb0E",
+    "trace_splat_wide_f32": "trace_splat_wide_kernelINS_11UniformDrawELb1E",
+    "trace_deposits_wide_rng": "trace_deposits_kernelILb0ELb0E",
+    "trace_deposits_wide": "trace_deposits_kernelILb1ELb0E",
+    "trace_deposits_wide_diff": "trace_deposits_kernelILb1ELb1E",
+    "trace_splat_wide_diff_rng_i8":
+        "trace_splat_diff_kernelINS_8HashDrawELb0E",
+    "trace_splat_wide_diff_rng_f32":
+        "trace_splat_diff_kernelINS_8HashDrawELb1E",
+    "trace_splat_wide_diff_i8":
+        "trace_splat_diff_kernelINS_11UniformDrawELb0E",
+    "trace_splat_wide_diff_f32":
+        "trace_splat_diff_kernelINS_11UniformDrawELb1E",
+    "trace_fold_wide_rng": "trace_fold_kernelINS_8HashDrawE",
+    "trace_fold_wide": "trace_fold_kernelINS_11UniformDrawE",
+}
+# an H100 SM: 65,536 registers, given out in 8 a thread; 228 KB of shared
+# memory, 1 KB of it reserved per block; 2,048 threads
+SM_REGISTERS, SM_SMEM, SM_THREADS = 65536, 233472, 2048
+# the staged scene's block constants (kConstFloats, csrc/trace_wide.cuh)
+CONST_FLOATS = 64
+
+
+def ptxas_registers(log):
+    """{kernel symbol: registers} from the build's -Xptxas -v output."""
+    import re
+
+    regs, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            regs[cur] = int(m.group(1))
+            cur = None
+    return regs
+
+
+def instance_occupancy(name, n_rects, depth, regs):
+    """(instance, registers, shared bytes, blocks per SM) of one trace
+    instance on a table of n_rects: the shared-memory instance when the
+    staged scene fits beside its buffers (launch_table), else the
+    device-memory one; blocks per SM from the registers and the shared
+    bytes by the SM's allocation rules."""
+    diff = name.startswith(("trace_deposits_wide_diff",
+                            "trace_splat_wide_diff", "trace_fold"))
+    table = 4 * (CONST_FLOATS + 13 * n_rects + (n_rects if diff else 0))
+    buffers = 4 * (8 * n_rects + 2 * depth * 256) if name.startswith(
+        "trace_fold") else 0
+    smem_instance = table + buffers <= 232448
+    smem = buffers + (table if smem_instance else 0)
+    flag = "Lb1EE" if smem_instance else "Lb0EE"
+    found = [r for sym, r in regs.items() if PTXAS_NAMES[name] + flag in sym]
+    check(len(found) == 1, f"{name}: {len(found)} kernels in the ptxas log")
+    r = found[0]
+    blocks = min(SM_REGISTERS // (-(-r // 8) * 8 * 256),
+                 SM_SMEM // (smem + 1024), SM_THREADS // 256)
+    return ("shared" if smem_instance else "device"), r, smem, blocks
+
+
+def redesigned_trace_phase(dev, cfg, s, s6, make_layout):
+    """36. every instance of the redesigned trace (csrc/trace_wide.cuh):
+    on mini and the 4x4 tiling at the CLI's batch, and on mini tiled 13x13
+    (the device-memory instances), each against its plain version
+    (instance_error's bands, on a batch of 8192 photons on 13x13) and run
+    twice bit for bit; ms per batch beside its bound and the share of it,
+    registers and blocks per SM."""
+    import torch
+
+    from flatmatch_tpu_torch.utils import cuda_build
+
+    regs = ptxas_registers(cuda_build.build_info["log"])
+    B, D = cfg.photon.photons_per_batch, cfg.photon.max_depth
+    with tempfile.TemporaryDirectory() as tmp:
+        png = pathlib.Path(tmp) / "mini_13x13.png"
+        make_layout.tiled(str(FIXTURES / "mini.png"), str(png), 13, 13)
+        s13 = batch_setup(png, cfg, dev)
+    k36 = {}
+    for scene, st, reps in (("mini", s, 20), ("4x4", s6, 10),
+                            ("13x13", s13, 2)):
+        n = st["aa_c"].fields.shape[1]
+        checked, bh, bu = trace_instances(st, cfg, dev,
+                                          8192 if scene == "13x13" else B)
+        k = {}
+        for name, (run, want) in checked.items():
+            a, b = run(), run()
+            sync()
+            same = all(torch.equal(x, y) for x, y in zip(a, b)) if \
+                isinstance(a, tuple) else torch.equal(a, b)
+            check(same, f"{scene} {name}: two runs differ")
+            k[name] = dict(max_abs_err=instance_error(name, a, want, n),
+                           bit_identical_rerun=True)
+        if scene == "13x13":           # timed at the CLI's batch
+            checked, bh, bu = trace_instances(st, cfg, dev, B, plain=False)
+        for name, (run, _) in checked.items():
+            ms = cuda_ms(run, reps)
+            bnd = trace_bound(st, bu if name in UNIFORM_KERNELS else bh, B,
+                              name, D)
+            inst, r, smem, blocks = instance_occupancy(name, n, D, regs)
+            k[name].update(ms=ms, bound_ms=bnd[0], bound_by=bnd[1],
+                           share_of_bound=bnd[0] / ms, instance=inst,
+                           registers=r, shared_bytes=smem,
+                           blocks_per_sm=blocks)
+        del checked
+        k36[scene] = dict(rects=n, batch=B, checked_batch=(
+            8192 if scene == "13x13" else B), kernels=k)
+    say("redesigned_trace", **k36)
 
 
 def main():
@@ -2624,6 +2776,7 @@ def main():
     inkernel_phases(dev, results, cfg, s, dict(s5, cfg=cfg5), s6)
     threefry_phases(dev, results, cfg, s, s6, make_layout)
     general_phases(dev, results, make_layout)
+    redesigned_trace_phase(dev, cfg, s, s6, make_layout)
 
     print(json.dumps({"kernels": [dict(KERNELS[k], **results[k])
                                   for k in KERNELS]}))

@@ -41,23 +41,21 @@ namespace {
 // device memory (launch_table, trace_wide.cuh). `albedo` and `ridx` are
 // read and written only when kDiff.
 template <bool kUniforms, bool kDiff, bool kSmem>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSmem ? kSmemMinBlocks : 1)
 trace_deposits_kernel(const float* __restrict__ scene,
                       const float* __restrict__ albedo,
                       const float* __restrict__ em,
                       const float* __restrict__ u_t, const Params P,
                       int batch, int block, int* __restrict__ idx,
                       float* __restrict__ col, int* __restrict__ ridx) {
-  extern __shared__ float smem[];
-  const float* tab = scene;
+  extern __shared__ __align__(16) float smem[];
   const float* alb = albedo;
-  if constexpr (kSmem) {
-    stage(smem, scene, F_AA * P.n_rects);           // [F_AA][N]
-    if constexpr (kDiff) stage(smem + F_AA * P.n_rects, albedo, P.n_rects);
-    __syncthreads();
-    tab = smem;
-    alb = smem + F_AA * P.n_rects;
+  if constexpr (kSmem && kDiff) {
+    alb = smem + table_floats(P.n_rects);           // [N]
+    stage(smem + table_floats(P.n_rects), albedo, P.n_rects);
   }
+  // the staged scene; its barrier also covers the albedo row
+  const Rects<kSmem> rects = stage_scene<kSmem>(smem, scene, em, P);
 
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= batch) return;
@@ -78,10 +76,10 @@ trace_deposits_kernel(const float* __restrict__ scene,
   };
   if (p < P.n_valid) {
     if constexpr (kUniforms) {
-      trace_photon<kDiff>(tab, alb, em, P, UniformDraw{u_t, batch, p},
+      trace_photon<kDiff>(rects, alb, P, UniformDraw{u_t, batch, p},
                           deposit);
     } else {
-      trace_photon<kDiff>(tab, alb, em, P,
+      trace_photon<kDiff>(rects, alb, P,
                           HashDraw{static_cast<uint32_t>(p), P.seed},
                           deposit);
     }
@@ -108,10 +106,10 @@ int launch_stream(const float* scene, const float* albedo, const float* em,
   const Params P = make_params(n_rects, g0, g1, g2, seed, n_valid, max_depth,
                                num_texels, eps, two_pi, rr, mirror_z, tint_z,
                                tint_r, tint_g, tint_b, albedo_const, 0.0f);
-  const size_t rows = kDiff ? F_AA + 1 : F_AA;
+  const size_t floats = table_floats(n_rects) + (kDiff ? n_rects : 0);
   return launch_table(trace_deposits_kernel<kUniforms, kDiff, true>,
                       trace_deposits_kernel<kUniforms, kDiff, false>,
-                      sizeof(float) * rows * static_cast<size_t>(n_rects), 0, 0,
+                      sizeof(float) * floats, 0, 0,
                       blocks_for(batch), kThreads,
                       static_cast<cudaStream_t>(stream), scene, albedo, em,
                       u_t, P, batch, block, idx, col, ridx);

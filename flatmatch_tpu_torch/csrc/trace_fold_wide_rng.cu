@@ -67,7 +67,7 @@ __device__ __forceinline__ float bf16_round(float x) {
 // kSmem: the scene table and albedo row in shared memory, else read from
 // device memory; u_t and batch are read only by the UniformDraw instance
 template <class Draw, bool kSmem>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSmem ? kSmemMinBlocks : 1)
 trace_fold_kernel(const float* __restrict__ scene,
                   const float* __restrict__ albedo,
                   const float* __restrict__ em, const float* __restrict__ g,
@@ -76,19 +76,17 @@ trace_fold_kernel(const float* __restrict__ scene,
   const int N = P.n_rects;
   const int D = P.max_depth;
   const int t = threadIdx.x;
-  extern __shared__ float smem[];
-  const float* tab = scene;
+  extern __shared__ __align__(16) float smem[];
   const float* alb = albedo;
   float* s_acc = smem;                         // [kWarps][N] per-warp sums
   if constexpr (kSmem) {
-    float* s_scene = smem;                     // [F_AA][N]
-    float* s_alb = s_scene + F_AA * N;         // [N]
-    stage(s_scene, scene, F_AA * N);
+    float* s_alb = smem + table_floats(N);     // [N], after the scene
     stage(s_alb, albedo, N);
-    tab = s_scene;
     alb = s_alb;
     s_acc = s_alb + N;
   }
+  // the staged scene; its barrier also covers the albedo row
+  const Rects<kSmem> rects = stage_scene<kSmem>(smem, scene, em, P);
   float* s_w = s_acc + kWarps * N;             // [D][kThreads]: w, then S
   int* s_slot = reinterpret_cast<int*>(s_w + D * kThreads);  // [D][kThreads]
   for (int i = t; i < kWarps * N; i += kThreads) s_acc[i] = 0.0f;
@@ -109,7 +107,7 @@ trace_fold_kernel(const float* __restrict__ scene,
       }
     }();
     trace_photon<true>(
-        tab, alb, em, P, draws,
+        rects, alb, P, draws,
         [&](int d, int btex, float cr, float cg, float cb, int slot) {
           float w = 0.0f;
           if (static_cast<unsigned>(btex) <
@@ -195,7 +193,7 @@ int run_fold(const float* scene, const float* albedo, const float* em,
                          2 * static_cast<size_t>(P.max_depth) * kThreads);
     const int rc = launch_table(
         trace_fold_kernel<Draw, true>, trace_fold_kernel<Draw, false>,
-        sizeof(float) * (F_AA + 1) * static_cast<size_t>(P.n_rects), buffers,
+        sizeof(float) * (table_floats(P.n_rects) + P.n_rects), buffers,
         0, nb, kThreads, st, scene, albedo, em, g, u_t, batch, P, part);
     if (rc != 0) return rc;
   }

@@ -26,7 +26,7 @@
 // card the two routes give the same bits, and two runs give the same bits.
 //
 // What bounds them on an H100: the rect loop, as in the default kernel
-// (about 30 instructions per photon, rect and traced bounce); the i8
+// (about 22 instructions per photon, rect and traced bounce); the i8
 // threefry kernel adds the uniforms read, 4 * (4 + 3D) bytes per photon
 // (14.7 MB per 131072-photon batch, 4 us at 3.35 TB/s); the f32 kernels add
 // up to 3D int64 atomics per photon in L2 and the [T, 3] int64 zeroing and
@@ -44,18 +44,13 @@ namespace {
 // kSmem: the scene table in shared memory, else read from device memory
 // (launch_table, trace_wide.cuh)
 template <class Draw, bool kF32, bool kSmem>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSmem ? kSmemMinBlocks : 1)
 trace_splat_wide_kernel(const float* __restrict__ scene,
                         const float* __restrict__ em,
                         const float* __restrict__ u_t, int batch,
                         float to_fixed, const Params P, void* acc) {
-  extern __shared__ float s_scene[];  // [F_AA][N]
-  const float* tab = scene;
-  if constexpr (kSmem) {
-    stage(s_scene, scene, F_AA * P.n_rects);
-    __syncthreads();
-    tab = s_scene;
-  }
+  extern __shared__ __align__(16) float smem[];  // the staged scene
+  const Rects<kSmem> rects = stage_scene<kSmem>(smem, scene, em, P);
 
   const int pi = blockIdx.x * blockDim.x + threadIdx.x;
   // dead photons deposit exactly 0 and are not traced
@@ -69,7 +64,7 @@ trace_splat_wide_kernel(const float* __restrict__ scene,
     }
   }();
   trace_photon<false>(
-      tab, nullptr, em, P, draws,
+      rects, nullptr, P, draws,
       [&](int d, int btex, float cr, float cg, float cb, int) {
         if constexpr (kF32) {
           splat_f32(static_cast<unsigned long long*>(acc), P, to_fixed, btex,
@@ -88,8 +83,8 @@ int launch_trace(const float* scene, const float* em, const float* u_t,
   if (P.n_valid <= 0) return 0;
   return launch_table(trace_splat_wide_kernel<Draw, kF32, true>,
                       trace_splat_wide_kernel<Draw, kF32, false>,
-                      sizeof(float) * F_AA * static_cast<size_t>(P.n_rects),
-                      0, 0, blocks_for(P.n_valid), kThreads, s, scene, em, u_t,
+                      sizeof(float) * table_floats(P.n_rects), 0, 0,
+                      blocks_for(P.n_valid), kThreads, s, scene, em, u_t,
                       batch, to_fixed, P, acc);
 }
 

@@ -21,7 +21,7 @@
 // how:
 //   - the albedo of a diffuse hit is albedo_aa[j] of the winning rect slot
 //     j (:290-292, :373-379, :494). Each block stages that [N] row in
-//     shared memory beside the [13, N] scene table (both stay in device
+//     shared memory beside the staged scene (both stay in device
 //     memory when they do not fit: launch_table, trace_wide.cuh), and the
 //     shared trace (trace_wide.cuh, kDiff = true) tracks j;
 //   - the grid is a run-time scalar that covers the deposit bound at the
@@ -39,9 +39,9 @@
 // fm_trace_splat_wide_rng_f32 (or fm_trace_splat_wide_f32) bit for bit.
 //
 // What bounds it on an H100: the same as the production kernels, the
-// instruction rate of the rect loop (about 30 instructions per photon,
-// rect and traced bounce); slot tracking adds one register move per
-// winning rect, and the albedo row one shared load per diffuse bounce. The
+// instruction rate of the rect loop (about 22 instructions per photon,
+// rect and traced bounce; the winning column is kept in any case), and the
+// albedo row one shared load per diffuse bounce. The
 // f32 tier adds up to 3D int64 atomics per photon, and the zeroing and
 // conversion of the [T, 3] int64 accumulator; the uniforms-in instances
 // read 4 * (4 + 3D) bytes per photon (14.7 MB per 131072-photon batch).
@@ -59,23 +59,21 @@ namespace {
 // the UniformDraw instances; kSmem: the table and albedo row in shared
 // memory, else read from device memory
 template <class Draw, bool kF32, bool kSmem>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSmem ? kSmemMinBlocks : 1)
 trace_splat_diff_kernel(const float* __restrict__ scene,
                         const float* __restrict__ albedo,
                         const float* __restrict__ em,
                         const float* __restrict__ u_t, int batch,
                         const float* __restrict__ grid, const Params P,
                         void* acc) {
-  extern __shared__ float smem[];
-  const float* tab = scene;
+  extern __shared__ __align__(16) float smem[];
   const float* alb = albedo;
   if constexpr (kSmem) {
-    stage(smem, scene, F_AA * P.n_rects);                  // [F_AA][N]
-    stage(smem + F_AA * P.n_rects, albedo, P.n_rects);     // [N]
-    __syncthreads();
-    tab = smem;
-    alb = smem + F_AA * P.n_rects;
+    alb = smem + table_floats(P.n_rects);                  // [N]
+    stage(smem + table_floats(P.n_rects), albedo, P.n_rects);
   }
+  // the staged scene; its barrier also covers the albedo row
+  const Rects<kSmem> rects = stage_scene<kSmem>(smem, scene, em, P);
 
   const int pi = blockIdx.x * blockDim.x + threadIdx.x;
   // dead photons deposit exactly 0 and are not traced
@@ -90,7 +88,7 @@ trace_splat_diff_kernel(const float* __restrict__ scene,
   }();
   const float g = *grid;
   trace_photon<true>(
-      tab, alb, em, P, draws,
+      rects, alb, P, draws,
       [&](int d, int btex, float cr, float cg, float cb, int) {
         if constexpr (kF32) {
           splat_f32(static_cast<unsigned long long*>(acc), P, g, btex, cr,
@@ -109,7 +107,7 @@ int launch_diff(const float* scene, const float* albedo, const float* em,
   return launch_table(
       trace_splat_diff_kernel<Draw, kF32, true>,
       trace_splat_diff_kernel<Draw, kF32, false>,
-      sizeof(float) * (F_AA + 1) * static_cast<size_t>(P.n_rects), 0, 0,
+      sizeof(float) * (table_floats(P.n_rects) + P.n_rects), 0, 0,
       blocks_for(P.n_valid), kThreads, s, scene, albedo, em, u_t, batch, grid,
       P, acc);
 }

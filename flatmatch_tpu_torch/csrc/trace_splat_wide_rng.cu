@@ -9,9 +9,10 @@
 //     the TPU kernel's rgid/gid. Draws and dither keys depend only on p, the
 //     batch seed and the draw column, so the block shape changes no result;
 //   - each block stages the [13, N] scene table in shared memory (dynamic
-//     above 48 KB); every rect read in the loop is a warp-uniform broadcast.
-//     A table past a block's shared memory is read from device memory
-//     instead (launch_table, trace_wide.cuh);
+//     above 48 KB) as per-rect records (stage_scene, trace_wide.cuh); a
+//     rect test reads two warp-uniform 16-byte broadcasts. A table past a
+//     block's shared memory is read from device memory instead
+//     (launch_table, trace_wide.cuh);
 //   - deposits go by atomicAdd into an int32 [T, 3] accumulator in device
 //     memory instead of the TPU's int8 one-hot MXU binning. Integer sums do
 //     not depend on order, so two runs are bit-identical.
@@ -19,12 +20,12 @@
 // differentiable forward and the replay backward.
 //
 // What bounds it on an H100: the instruction rate of the rect loop (about
-// 30 instructions, 8 of them shared-memory broadcasts, per photon, rect and
-// traced bounce, over all N rects every bounce), then the per-bounce
-// sampling and the atomics (up to 3 * max_depth deposits per photon; zero
-// deposits are skipped). Measured (PERF.md): 0.104 ms per 131072-photon
-// batch at 27 rects and 0.80 ms at 432 rects, so the rect loop is about
-// 93% of a batch at 432 rects and about half at 27.
+// 22 instructions, two of them 16-byte shared-memory broadcasts, per
+// photon, rect and traced bounce, over all N rects every bounce), then the
+// per-bounce sampling and the atomics (up to 3 * max_depth deposits per
+// photon; zero deposits are skipped). PERF.md has its times per batch at
+// 27 rects (mini), where emission, bounces and atomics weigh as much as
+// the loop, and at 432 (the 4x4 tiling), where the loop takes nearly all.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false (see
 // flatmatch_tpu_torch/utils/cuda_build.py).
@@ -35,24 +36,19 @@ namespace {
 // kSmem: the scene table in shared memory, else read from device memory
 // (launch_table, trace_wide.cuh)
 template <bool kSmem>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSmem ? kSmemMinBlocks : 1)
 trace_splat_kernel(const float* __restrict__ scene,
                    const float* __restrict__ em, const Params P,
                    int* __restrict__ acc) {
-  extern __shared__ float s_scene[];  // [F_AA][N]
-  const float* tab = scene;
-  if constexpr (kSmem) {
-    stage(s_scene, scene, F_AA * P.n_rects);
-    __syncthreads();
-    tab = s_scene;
-  }
+  extern __shared__ __align__(16) float smem[];  // the staged scene
+  const Rects<kSmem> rects = stage_scene<kSmem>(smem, scene, em, P);
 
   const int pi = blockIdx.x * blockDim.x + threadIdx.x;
   // photons at or past n_valid are dead from the start and deposit exactly
   // 0 (floor(0 * inv_s + dither) == 0), so they are not traced
   if (pi >= P.n_valid) return;
   const uint32_t p = static_cast<uint32_t>(pi);
-  trace_photon<false>(tab, nullptr, em, P, HashDraw{p, P.seed},
+  trace_photon<false>(rects, nullptr, P, HashDraw{p, P.seed},
                       [&](int d, int btex, float cr, float cg, float cb,
                           int) {
                         splat_i8(acc, P, P.inv_s, p, d, btex, cr, cg, cb);
@@ -76,7 +72,7 @@ extern "C" int fm_trace_splat_wide_rng_i8(
                                mirror_z, tint_z, tint_r, tint_g, tint_b,
                                albedo, inv_s);
   return launch_table(trace_splat_kernel<true>, trace_splat_kernel<false>,
-                      sizeof(float) * F_AA * static_cast<size_t>(n_rects), 0, 0,
+                      sizeof(float) * table_floats(n_rects), 0, 0,
                       blocks_for(n_valid), kThreads,
                       static_cast<cudaStream_t>(stream), scene, em, P, acc);
 }

@@ -19,6 +19,20 @@
 // Its emission and bounce (emit_photon, bounce) also serve the general
 // trace of trace_deposits_narrow.cu.
 //
+// Design on Hopper. Every traced bounce tests every rect, so on a scene of
+// hundreds of rects the rect loop takes the time, bound by the
+// instructions it issues. So: the shared-memory instance reads a rect as
+// two 16-byte broadcasts from per-rect records that each block stages once
+// (stage_scene), where the [F_AA][N] rows take eight scalar loads; the
+// loop keeps only the running minimum and its column, with selects, and
+// the winner's texel id, axis and sign come once after the three axis
+// groups, from its u and v recomputed from the same floats; the loop is
+// unrolled (Rects::kUnroll); the bases of the six axis normals and of the
+// emitter are built once per block, not at every diffuse bounce and
+// emission; a bounce's uniforms are loaded before its rect loop, which
+// hides the load. Each output bit is what a rect-at-a-time loop with
+// build_base at every bounce gives.
+//
 // Every kernel that includes this builds with -fmad=false (see
 // flatmatch_tpu_torch/utils/cuda_build.py): each product is rounded on its
 // own, as the plain PyTorch version (engines/photon_wide.py) rounds it.
@@ -31,6 +45,14 @@
 namespace {
 
 constexpr int kThreads = 256;
+// Blocks per SM that the shared-memory instances of the trace kernels ask
+// the compiler to fit (__launch_bounds__): 48 registers a thread. Measured
+// on an H100 (PERF.md): on mini, where bounces wait on the uniforms'
+// loads, 5 blocks against the 4 that 64 registers give cut the
+// uniforms-in instances' time by 10-30%; on the 4x4 tiling, where the rect
+// loop issues at its rate, they cost 3%. The device-memory instances take
+// no cap: at 48 registers they spill.
+constexpr int kSmemMinBlocks = 5;
 constexpr float kMiss = 1e30f;
 constexpr float kHitBelow = 5e29f;   // _MISS * 0.5
 
@@ -118,6 +140,33 @@ struct UniformDraw {
   }
 };
 
+// The three draws of bounce d (RR, u1, u2), k = 0, 1, 2. The counter hash
+// computes each where it is used (u1 and u2 on the diffuse branch only);
+// the uniforms are loaded when bounce_draws is called, so a trace that
+// calls it before its rect loop hides the load behind the loop.
+struct HashBounceDraws {
+  HashDraw h;
+  int c0;
+  __device__ __forceinline__ float operator()(int k) const {
+    return h(c0 + k);
+  }
+};
+
+struct LoadedBounceDraws {
+  float v[3];
+  __device__ __forceinline__ float operator()(int k) const { return v[k]; }
+};
+
+__device__ __forceinline__ HashBounceDraws bounce_draws(const HashDraw& h,
+                                                        int d) {
+  return HashBounceDraws{h, 4 + 3 * d};
+}
+
+__device__ __forceinline__ LoadedBounceDraws bounce_draws(
+    const UniformDraw& u, int d) {
+  return LoadedBounceDraws{{u(4 + 3 * d), u(5 + 3 * d), u(6 + 3 * d)}};
+}
+
 // Dither of deposit key p*3D + 3d + ch, hashed as fmix32(key * 0x9E3779B9).
 // The stream splat (splat_stream.cu) keys it by stream row * 3 + ch.
 __device__ __forceinline__ float dither(uint32_t key) {
@@ -193,8 +242,9 @@ inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 constexpr size_t kSmemLimit = 232448;
 
 // Where the kernels keep the [F_AA][N] scene table (and the diff kernels'
-// [N] albedo row): with kSmem each block stages it in shared memory, so
-// every rect read of the loop is a shared-memory broadcast; without, the
+// [N] albedo row): with kSmem each block stages it in shared memory (the
+// trace kernels as per-rect records, stage_scene), so every rect read of
+// the loop is a shared-memory broadcast; without, the
 // loop reads it from device memory, where it stays in L1 and L2 (a table
 // of 4,563 rects is 237 KB). The flag is a template argument, so the
 // shared-memory instance compiles to the same loads as a kernel with no
@@ -276,22 +326,35 @@ __device__ __forceinline__ void build_base(float nx, float ny, float nz,
   uz = uz * inv;
 }
 
+// The basis of a unit normal, as build_base gives it.
+struct Basis {
+  float ux, uy, uz, vx, vy, vz;
+};
+
+__device__ __forceinline__ Basis basis_of(float nx, float ny, float nz) {
+  Basis b;
+  build_base(nx, ny, nz, b.ux, b.uy, b.uz, b.vx, b.vy, b.vz);
+  return b;
+}
+
 // Copy `n` floats from device memory into shared memory, block-strided.
 __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
 // Emission (photonmap.cl:173-181) of one photon from the 16-float emitter
-// vector `em` (pos, wvec, hvec, n, color, is_window flag): its start point
-// (nudged eps along the direction), direction and color.
+// vector `em` (pos, wvec, hvec, n, color, is_window flag) whose normal has
+// the basis `eb`: its start point (nudged eps along the direction),
+// direction and color.
 template <class Draw>
-__device__ __forceinline__ void emit_photon(const float* __restrict__ em,
-                                            const Params& P,
-                                            const Draw& draws, float& px,
-                                            float& py, float& pz,
-                                            float& dirx, float& diry,
-                                            float& dirz, float& cr,
-                                            float& cg, float& cb) {
+__device__ __forceinline__ void emit_photon_in(const float* __restrict__ em,
+                                               const Basis& eb,
+                                               const Params& P,
+                                               const Draw& draws, float& px,
+                                               float& py, float& pz,
+                                               float& dirx, float& diry,
+                                               float& dirz, float& cr,
+                                               float& cg, float& cb) {
   const float epx = em[0], epy = em[1], epz = em[2];
   const float ewx = em[3], ewy = em[4], ewz = em[5];
   const float ehx = em[6], ehy = em[7], ehz = em[8];
@@ -311,34 +374,49 @@ __device__ __forceinline__ void emit_photon(const float* __restrict__ em,
   // Window emission (note 6): a window emits into its inner half-space.
   if (is_window > 0.0f) uu = fabsf(uu);
 
-  float ux, uy, uz, vx, vy, vz;
-  build_base(enx, eny, enz, ux, uy, uz, vx, vy, vz);
   // Evaluation order (note 4): every sum associates left to right as in
   // the JAX source, e.g. epx + ewx*dxe + ehx*dye + dirx*eps.
-  dirx = ux * uu + vx * vv + enx * nn;
-  diry = uy * uu + vy * vv + eny * nn;
-  dirz = uz * uu + vz * vv + enz * nn;
+  dirx = eb.ux * uu + eb.vx * vv + enx * nn;
+  diry = eb.uy * uu + eb.vy * vv + eny * nn;
+  dirz = eb.uz * uu + eb.vz * vv + enz * nn;
   px = epx + ewx * dxe + ehx * dye + dirx * P.eps;
   py = epy + ewy * dxe + ehy * dye + diry * P.eps;
   pz = epz + ewz * dxe + ehz * dye + dirz * P.eps;
 }
 
-// Russian roulette and the bounce at a hit (photonmap.cl:236-254): the
-// photon at height pz on a rect of normal hn takes the diffuse branch
-// (cosine resample, floor tint, albedo: the per-slot albedo s_alb[bslot]
-// when kDiff, else the scalar one) or the mirror branch; returns whether it
-// was diffuse. The same code serves the axis-aligned and the general trace.
-template <bool kDiff, class Draw>
-__device__ __forceinline__ bool bounce(const Params& P, const Draw& draws,
-                                       int d, float hnx, float hny,
-                                       float hnz, float pz,
-                                       const float* __restrict__ s_alb,
-                                       int bslot, float& dirx, float& diry,
-                                       float& dirz, float& cr, float& cg,
-                                       float& cb) {
-  const float u_rr = draws(4 + 3 * d);
-  const float u1 = draws(5 + 3 * d);
-  const float u2 = draws(6 + 3 * d);
+// emit_photon_in with the emitter's basis built here, per photon (the
+// general trace of trace_deposits_narrow.cu).
+template <class Draw>
+__device__ __forceinline__ void emit_photon(const float* __restrict__ em,
+                                            const Params& P,
+                                            const Draw& draws, float& px,
+                                            float& py, float& pz,
+                                            float& dirx, float& diry,
+                                            float& dirz, float& cr,
+                                            float& cg, float& cb) {
+  emit_photon_in(em, basis_of(em[9], em[10], em[11]), P, draws, px, py, pz,
+                 dirx, diry, dirz, cr, cg, cb);
+}
+
+// Russian roulette and the bounce at a hit (photonmap.cl:236-254): with
+// the bounce's draws bd (bounce_draws), the photon at height pz on a rect
+// of normal hn takes the diffuse branch (cosine resample about hn, whose
+// basis base_of() returns, floor tint, albedo: the per-slot albedo
+// s_alb[bslot] when kDiff, else the scalar one) or the mirror branch;
+// returns whether it was diffuse. base_of is called on the diffuse branch
+// only.
+template <bool kDiff, class BounceDraws, class BaseOf>
+__device__ __forceinline__ bool bounce_in(const Params& P,
+                                          const BounceDraws& bd, float hnx,
+                                          float hny, float hnz, float pz,
+                                          const float* __restrict__ s_alb,
+                                          int bslot, const BaseOf& base_of,
+                                          float& dirx, float& diry,
+                                          float& dirz, float& cr, float& cg,
+                                          float& cb) {
+  const float u_rr = bd(0);
+  const float u1 = bd(1);
+  const float u2 = bd(2);
   // the diffuse/mirror choice reads pz at the hit point
   const bool diffuse = (pz > P.mirror_z) || (u_rr > P.rr);
   if (diffuse) {
@@ -347,8 +425,7 @@ __device__ __forceinline__ bool bounce(const Params& P, const Draw& draws,
     const float duu = rd * cosf(phid);
     const float dvv = rd * sinf(phid);
     const float dnn = sqrtf(1.0f - rd * rd);
-    float bux, buy, buz, bvx, bvy, bvz;
-    build_base(hnx, hny, hnz, bux, buy, buz, bvx, bvy, bvz);
+    const Basis b = base_of();
     const bool on_floor = pz < P.tint_z;
     const float tr = on_floor ? P.tint_r : 1.0f;
     const float tg = on_floor ? P.tint_g : 1.0f;
@@ -358,9 +435,9 @@ __device__ __forceinline__ bool bounce(const Params& P, const Draw& draws,
     cr = cr * tr * alb;
     cg = cg * tg * alb;
     cb = cb * tb * alb;
-    dirx = bux * duu + bvx * dvv + hnx * dnn;
-    diry = buy * duu + bvy * dvv + hny * dnn;
-    dirz = buz * duu + bvz * dvv + hnz * dnn;
+    dirx = b.ux * duu + b.vx * dvv + hnx * dnn;
+    diry = b.uy * duu + b.vy * dvv + hny * dnn;
+    dirz = b.uz * duu + b.vz * dvv + hnz * dnn;
   } else {
     const float ndotd = hnx * dirx + hny * diry + hnz * dirz;
     const float mdx = dirx - 2.0f * ndotd * hnx;
@@ -373,43 +450,229 @@ __device__ __forceinline__ bool bounce(const Params& P, const Draw& draws,
   return diffuse;
 }
 
+// bounce_in with the basis of hn built at each diffuse bounce (the general
+// trace of trace_deposits_narrow.cu, whose normals are arbitrary).
+template <bool kDiff, class Draw>
+__device__ __forceinline__ bool bounce(const Params& P, const Draw& draws,
+                                       int d, float hnx, float hny,
+                                       float hnz, float pz,
+                                       const float* __restrict__ s_alb,
+                                       int bslot, float& dirx, float& diry,
+                                       float& dirz, float& cr, float& cg,
+                                       float& cb) {
+  return bounce_in<kDiff>(
+      P, bounce_draws(draws, d), hnx, hny, hnz, pz, s_alb, bslot,
+      [&] { return basis_of(hnx, hny, hnz); }, dirx, diry, dirz, cr, cg, cb);
+}
+
+// ---------------------------------------------------------------------------
+// The scene as the axis-aligned trace reads it.
+//
+// Shared-memory instance (kSmem): each block stages the [F_AA][N] table as
+// per-rect records, so a rect test reads two 16-byte broadcasts where the
+// [F_AA][N] rows take eight scalar loads:
+//   rec[2j]     = {O, SN, CU, WS},   rec[2j + 1] = {CV, HS, WLEN, HLEN},
+// then the five texel rows tex[(row - A_BASE) * N + j] (BASE, WT, HT, KTU,
+// KTV), read once per bounce for the winner only: 52 bytes a rect, as the
+// table. Before them, kConstFloats of block constants: the bases
+// build_base gives the six axis normals +-e_a (class 2a + (sign < 0)), the
+// emitter's basis and the emitter vector, each computed or copied once per
+// block. A hit normal is (sign on axis a, +0 elsewhere), built from the
+// winner's SN; the staging checks that build_base at every rect's normal
+// equals its class's basis, bit for bit (it does for every
+// |SN| in [0.999999, 1.0006), which holds the 1-ulp-off normals that
+// normalization gives), and a block whose table fails the check calls
+// build_base at each diffuse bounce instead.
+// Device-memory instance: the [F_AA][N] table read field by field where it
+// lies (L1 and L2), and build_base called per photon and diffuse bounce.
+// Both feed the same rect loop (trace_photon).
+constexpr int kConstFloats = 64;
+enum { C_AXIS = 0, C_EMB = 36, C_EM = 42 };
+
+// Floats of shared memory that the shared-memory instance stages for `n`
+// rects (the launchers' table size).
+__host__ __device__ __forceinline__ size_t table_floats(int n) {
+  return kConstFloats + static_cast<size_t>(F_AA) * n;
+}
+
+__device__ __forceinline__ Basis load_basis(const float* b) {
+  return Basis{b[0], b[1], b[2], b[3], b[4], b[5]};
+}
+
+__device__ __forceinline__ void store_basis(float* dst, const Basis& b) {
+  dst[0] = b.ux;
+  dst[1] = b.uy;
+  dst[2] = b.uz;
+  dst[3] = b.vx;
+  dst[4] = b.vy;
+  dst[5] = b.vz;
+}
+
+__device__ __forceinline__ bool same_bits(const Basis& b, const float* w) {
+  return __float_as_uint(b.ux) == __float_as_uint(w[0]) &&
+         __float_as_uint(b.uy) == __float_as_uint(w[1]) &&
+         __float_as_uint(b.uz) == __float_as_uint(w[2]) &&
+         __float_as_uint(b.vx) == __float_as_uint(w[3]) &&
+         __float_as_uint(b.vy) == __float_as_uint(w[4]) &&
+         __float_as_uint(b.vz) == __float_as_uint(w[5]);
+}
+
+// The normal-axis group of table column j: groups are contiguous, in axis
+// order, so this is the group whose loop visits j.
+__device__ __forceinline__ int axis_of(int j, const Params& P) {
+  return (j >= P.g0) + (j >= P.g0 + P.g1);
+}
+
+template <bool kSmem>
+struct Rects;
+
+template <>
+struct Rects<true> {
+  // rect tests per step of the unrolled loop (on an H100, 8 measured
+  // fastest on the 4x4 tiling against 2 and 4, and against two chains of
+  // independent minimums over halves of each group)
+  static constexpr int kUnroll = 8;
+  const float* c;     // block constants
+  const float4* rec;  // [2N] loop records
+  const float* tex;   // [5][N] texel rows
+  int n;
+  bool exact;         // the axis bases stand for build_base at every rect
+
+  __device__ __forceinline__ void loop(int j, float4& a, float4& b) const {
+    a = rec[2 * j];
+    b = rec[2 * j + 1];
+  }
+  __device__ __forceinline__ float field(int row, int j) const {
+    return tex[(row - A_BASE) * n + j];
+  }
+  __device__ __forceinline__ const float* em() const { return c + C_EM; }
+  __device__ __forceinline__ Basis emitter_basis() const {
+    return load_basis(c + C_EMB);
+  }
+  __device__ __forceinline__ Basis hit_basis(int axis, float sign, float hnx,
+                                             float hny, float hnz) const {
+    if (exact) return load_basis(c + C_AXIS + 6 * (2 * axis + (sign < 0.0f)));
+    return basis_of(hnx, hny, hnz);
+  }
+};
+
+template <>
+struct Rects<false> {
+  // unrolled by 2 (measured on an H100 on mini tiled 13x13: 1 about 20%
+  // slower on every instance; 4 holds some 170 registers and slows the
+  // streams)
+  static constexpr int kUnroll = 2;
+  const float* __restrict__ s;    // [F_AA][N] in device memory
+  const float* __restrict__ em_;  // the emitter vector in device memory
+  int n;
+
+  __device__ __forceinline__ void loop(int j, float4& a, float4& b) const {
+    a = make_float4(__ldg(s + A_O * n + j), __ldg(s + A_SN * n + j),
+                    __ldg(s + A_CU * n + j), __ldg(s + A_WS * n + j));
+    b = make_float4(__ldg(s + A_CV * n + j), __ldg(s + A_HS * n + j),
+                    __ldg(s + A_WLEN * n + j), __ldg(s + A_HLEN * n + j));
+  }
+  __device__ __forceinline__ float field(int row, int j) const {
+    return __ldg(s + row * n + j);
+  }
+  __device__ __forceinline__ const float* em() const { return em_; }
+  __device__ __forceinline__ Basis emitter_basis() const {
+    return basis_of(em_[9], em_[10], em_[11]);
+  }
+  __device__ __forceinline__ Basis hit_basis(int, float, float hnx, float hny,
+                                             float hnz) const {
+    return basis_of(hnx, hny, hnz);
+  }
+};
+
+// The scene of one block: with kSmem, stage the table, the bases and the
+// emitter vector into `smem` (table_floats(N) floats, 16-byte aligned); all
+// threads of the block call it, and it ends in a barrier. Without, only
+// point at the table and the emitter vector.
+template <bool kSmem>
+__device__ __forceinline__ Rects<kSmem> stage_scene(
+    float* smem, const float* __restrict__ table,
+    const float* __restrict__ em, const Params& P) {
+  const int n = P.n_rects;
+  if constexpr (!kSmem) {
+    return Rects<false>{table, em, n};
+  } else {
+    float* c = smem;
+    float4* rec = reinterpret_cast<float4*>(smem + kConstFloats);
+    float* tex = smem + kConstFloats + 8 * n;
+    const int t = threadIdx.x;
+    if (t < 6) {
+      const int a = t >> 1;
+      const float sign = (t & 1) ? -1.0f : 1.0f;
+      store_basis(c + C_AXIS + 6 * t,
+                  basis_of(a == 0 ? sign : 0.0f, a == 1 ? sign : 0.0f,
+                           a == 2 ? sign : 0.0f));
+    } else if (t == 6) {
+      store_basis(c + C_EMB, basis_of(em[9], em[10], em[11]));
+    }
+    if (t < 16) c[C_EM + t] = em[t];
+    for (int j = t; j < n; j += blockDim.x) {
+      rec[2 * j] = make_float4(table[A_O * n + j], table[A_SN * n + j],
+                               table[A_CU * n + j], table[A_WS * n + j]);
+      rec[2 * j + 1] =
+          make_float4(table[A_CV * n + j], table[A_HS * n + j],
+                      table[A_WLEN * n + j], table[A_HLEN * n + j]);
+      for (int k = 0; k < F_AA - A_BASE; ++k) {
+        tex[k * n + j] = table[(A_BASE + k) * n + j];
+      }
+    }
+    __syncthreads();
+    bool ok = true;
+    for (int j = t; j < n; j += blockDim.x) {
+      const float sn = rec[2 * j].y;
+      const int a = axis_of(j, P);
+      ok = ok && same_bits(basis_of(a == 0 ? sn : 0.0f, a == 1 ? sn : 0.0f,
+                                    a == 2 ? sn : 0.0f),
+                           c + C_AXIS + 6 * (2 * a + (sn < 0.0f)));
+    }
+    const bool exact = __syncthreads_and(ok) != 0;
+    return Rects<true>{c, rec, tex, n, exact};
+  }
+}
+
 // Trace one photon of the batch, whose draw column c is draws(c) (HashDraw,
-// or the uniforms of trace_deposits_wide.cu). `s` is the [F_AA][N] scene
-// table in shared memory, `s_alb` the per-slot albedo row (read only when
-// kDiff), `em` the 16-float emitter vector. At every bounce whose hit keeps
-// the photon alive, after the bounce's attenuation, it calls
+// or UniformDraw), over the scene `R` (stage_scene); `s_alb` is the
+// per-slot albedo row (read only when kDiff). At every bounce whose hit
+// keeps the photon alive, after the bounce's attenuation, it calls
 //   deposit(d, btex, cr, cg, cb, slot)
 // with slot = the winning rect's table column at a diffuse hit when kDiff,
 // else -1. A photon that misses stops: it would deposit exactly 0 at this
 // and every later bounce.
-template <bool kDiff, class Draw, class Deposit>
-__device__ __forceinline__ void trace_photon(const float* __restrict__ s,
+template <bool kDiff, class Scene, class Draw, class Deposit>
+__device__ __forceinline__ void trace_photon(const Scene& R,
                                              const float* __restrict__ s_alb,
-                                             const float* __restrict__ em,
                                              const Params& P,
                                              const Draw& draws,
                                              Deposit&& deposit) {
-  const int N = P.n_rects;
-#define S(row, j) s[(row) * N + (j)]
-
   float px, py, pz, dirx, diry, dirz, cr, cg, cb;
-  emit_photon(em, P, draws, px, py, pz, dirx, diry, dirz, cr, cg, cb);
+  emit_photon_in(R.em(), R.emitter_basis(), P, draws, px, py, pz, dirx, diry,
+                 dirz, cr, cg, cb);
 
   const int D = P.max_depth;
   const int counts[3] = {P.g0, P.g1, P.g2};
   for (int d = 0; d < D; ++d) {
+    const auto bd = bounce_draws(draws, d);   // before the rect loop
     const float pos[3] = {px, py, pz};
     const float dr[3] = {dirx, diry, dirz};
     // division by zero gives inf; the bounds test rejects those rects.
     // aa_nearest.cuh (aa_nearest_hit) repeats this rect loop for the AO
-    // and radiosity kernels: a change to its rules goes into both.
+    // and radiosity kernels on the [F_AA][N] rows, and
+    // trace_deposits_narrow.cu the general one: the three rules (the
+    // NaN-false compare chain, the strict `<`, the texel formula) hold in
+    // all of them.
     const float inv[3] = {1.0f / dirx, 1.0f / diry, 1.0f / dirz};
 
+    // Rect loop: only the running minimum and its column are kept, with
+    // selects; the winner's texel comes after the loop. A strict `<` keeps
+    // the first of equal minima, the JAX kernel's tie break
+    // (photon_pallas_wide.py:384-406).
     float best = kMiss;
-    int btex = 0;
-    int baxis = 0;
-    float bsign = 0.0f;
-    int bslot = -1;
+    int bj = 0;
     int start = 0;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -420,38 +683,26 @@ __device__ __forceinline__ void trace_photon(const float* __restrict__ s,
       const float pv = pos[av], dv = dr[av];
       const bool da_neg = dr[a] < 0.0f;
       const int end = start + counts[a];
-      // Rect loop: a strict `<` keeps the first of equal minima, the JAX
-      // kernel's tie break (photon_pallas_wide.py:384-406).
+#pragma unroll Scene::kUnroll
       for (int j = start; j < end; ++j) {
-        const float sn = S(A_SN, j);
-        const float fac = (S(A_O, j) - pa) * ia;
-        const bool front = da_neg != (sn < 0.0f);
-        const float u = (pu + du * fac - S(A_CU, j)) * S(A_WS, j);
-        const float v = (pv + dv * fac - S(A_CV, j)) * S(A_HS, j);
+        float4 r0, r1;  // {O, SN, CU, WS}, {CV, HS, WLEN, HLEN}
+        R.loop(j, r0, r1);
+        const float fac = (r0.x - pa) * ia;
+        const float u = (pu + du * fac - r0.z) * r0.w;
+        const float v = (pv + dv * fac - r1.x) * r1.y;
         // NaN handling in the bounds test (note 1): the JAX kernel writes
         // min(min(fac,u), min(wlen-u, min(v, hlen-v))) >= 0 and relies on
         // jnp.minimum propagating NaN (0 * inf from 1/dir). fminf drops
         // NaN and would accept the hit; this compare chain is false on
-        // NaN, as the min-tree is.
-        const bool valid = front && fac >= 0.0f && u >= 0.0f &&
-                           S(A_WLEN, j) - u >= 0.0f && v >= 0.0f &&
-                           S(A_HLEN, j) - v >= 0.0f;
-        const float dist = valid ? fac : kMiss;
-        if (dist < best) {
-          best = dist;
-          // Texel ids (note 7): base + ty*wt + tx with tx = min(floor(u *
-          // ktu), wt - 1), ty = min(floor(v * ktv), ht - 1), as int32.
-          // Below 2^24 they equal the JAX kernel's f32 ids.
-          const float wt = S(A_WT, j);
-          const float tx = fminf(floorf(u * S(A_KTU, j)), wt - 1.0f);
-          const float ty = fminf(floorf(v * S(A_KTV, j)), S(A_HT, j) - 1.0f);
-          btex = static_cast<int>(S(A_BASE, j)) +
-                 static_cast<int>(ty) * static_cast<int>(wt) +
-                 static_cast<int>(tx);
-          baxis = a;
-          bsign = sn;
-          if (kDiff) bslot = j;
-        }
+        // NaN, as the min-tree is. `u <= wlen` is `wlen - u >= 0` for a
+        // finite wlen (IEEE subtraction without flush to zero is exact in
+        // sign), and (valid ? fac : MISS) < best is `valid && fac < best`
+        // while best <= MISS.
+        const bool hit = (da_neg != (r0.y < 0.0f)) && fac >= 0.0f &&
+                         u >= 0.0f && u <= r1.z && v >= 0.0f && v <= r1.w &&
+                         fac < best;
+        best = hit ? fac : best;
+        bj = hit ? j : bj;
       }
       start = end;
     }
@@ -459,6 +710,30 @@ __device__ __forceinline__ void trace_photon(const float* __restrict__ s,
     // Order within a bounce (note 5): alive *= hit comes before this
     // bounce's deposit, so a miss deposits nothing now or later.
     if (!(best < kHitBelow)) break;
+
+    // The winner: its axis (its group), its sign, and its texel from the
+    // u and v of the loop, recomputed from the same floats at fac = best.
+    // Texel ids (note 7): base + ty*wt + tx with tx = min(floor(u * ktu),
+    // wt - 1), ty = min(floor(v * ktv), ht - 1), as int32; below 2^24 they
+    // equal the JAX kernel's f32 ids.
+    const int baxis = axis_of(bj, P);
+    float4 r0, r1;
+    R.loop(bj, r0, r1);
+    const float bsign = r0.y;
+    const float pu = (baxis == 0) ? py : px;
+    const float du = (baxis == 0) ? diry : dirx;
+    const float pv = (baxis == 2) ? py : pz;
+    const float dv = (baxis == 2) ? diry : dirz;
+    const float u = (pu + du * best - r0.z) * r0.w;
+    const float v = (pv + dv * best - r1.x) * r1.y;
+    const float wt = R.field(A_WT, bj);
+    const float tx = fminf(floorf(u * R.field(A_KTU, bj)), wt - 1.0f);
+    const float ty = fminf(floorf(v * R.field(A_KTV, bj)),
+                           R.field(A_HT, bj) - 1.0f);
+    const int btex = static_cast<int>(R.field(A_BASE, bj)) +
+                     static_cast<int>(ty) * static_cast<int>(wt) +
+                     static_cast<int>(tx);
+
     px = px + dirx * best;
     py = py + diry * best;
     pz = pz + dirz * best;
@@ -466,17 +741,18 @@ __device__ __forceinline__ void trace_photon(const float* __restrict__ s,
     const float hnx = (baxis == 0) ? bsign : 0.0f;
     const float hny = (baxis == 1) ? bsign : 0.0f;
     const float hnz = (baxis == 2) ? bsign : 0.0f;
-    const bool diffuse = bounce<kDiff>(P, draws, d, hnx, hny, hnz, pz, s_alb,
-                                       bslot, dirx, diry, dirz, cr, cg, cb);
+    const bool diffuse = bounce_in<kDiff>(
+        P, bd, hnx, hny, hnz, pz, s_alb, bj,
+        [&] { return R.hit_basis(baxis, bsign, hnx, hny, hnz); }, dirx, diry,
+        dirz, cr, cg, cb);
 
-    deposit(d, btex, cr, cg, cb, (kDiff && diffuse) ? bslot : -1);
+    deposit(d, btex, cr, cg, cb, (kDiff && diffuse) ? bj : -1);
 
     // the +eps nudge uses the NEW direction
     px = px + dirx * P.eps;
     py = py + diry * P.eps;
     pz = pz + dirz * P.eps;
   }
-#undef S
 }
 
 }  // namespace

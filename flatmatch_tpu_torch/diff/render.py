@@ -235,7 +235,7 @@ class WideDiffRenderer:
         """The diff stream of one batch, cut to its live rows."""
         idx, col, ridx = pw.trace_deposits_wide_diff(
             self.aa_c.fields, self.aa_c.group_counts, albedo_aa, ev,
-            self.draws(gb, bsz), nv, self.cfg, self.block, transposed=True)
+            self.draws(gb, bsz), nv, self.cfg, self.block)
         rows = self.live_rows(nv)
         return idx[:rows], col[:rows], ridx[:rows]
 
@@ -273,12 +273,12 @@ class WideDiffRenderer:
             elif self.i8:
                 pw.trace_splat_wide_diff_i8(
                     fields, gc, albedo_aa, ev, self.draws(gb, bsz), nv, cfg,
-                    self.total_c, g[1], out=acc, transposed=True)
+                    self.total_c, g[1], out=acc)
                 lm += acc.to(torch.float32) * g[0]
             else:
                 lm += pw.trace_splat_wide_diff_f32(
                     fields, gc, albedo_aa, ev, self.draws(gb, bsz), nv, cfg,
-                    self.total_c, g, transposed=True)
+                    self.total_c, g)
         return self.expand(lm)
 
     def backward_replay(self, albedo, power, g):
@@ -306,7 +306,7 @@ class WideDiffRenderer:
             else:
                 da_b, w_sum = pw.trace_fold_wide(
                     fields, gc, albedo_aa, evs[e], g_c, self.draws(gb, bsz),
-                    nv, cfg, self.n_slots, transposed=True)
+                    nv, cfg, self.n_slots)
             da_slots = da_slots + da_b
             dpe[e] = dpe[e] + w_sum
         d_power = torch.zeros_like(power)

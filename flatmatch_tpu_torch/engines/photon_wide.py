@@ -35,9 +35,10 @@ batch:
   render's deposit stream, with each row's diffuse-hit slot (`fit --splat
   scatter|bucket|bucket_exact`).
 
-The uniforms-in wrappers take the batch's [B, U] uniforms, or with
-`transposed` their [U, B] transpose, the layout their kernels read (which
-`ops/threefry.batch_uniforms(..., transposed=True)` draws directly). Each
+The uniforms-in wrappers take the batch's uniforms as [U, B], the layout
+their kernels read, which `ops/threefry.batch_uniforms(...,
+transposed=True)` draws directly (photon p draws column c from
+uniforms[c, p]). Each
 wrapper launches its kernel for CUDA tensors and runs the plain version
 (the plain trace, `trace_deposits_rng_plain`, `trace_uniforms_plain` or
 `trace_deposits_wide_plain`, with `splat_i8_plain`,
@@ -48,7 +49,6 @@ only the fold's own shared buffers cap it (`fold_max_rects`).
 """
 from __future__ import annotations
 
-import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -57,7 +57,7 @@ import torch
 from ..config import PhotonConfig
 from ..ops import rng, threefry
 from ..ops.aa_query import MISS, check_on, check_table, nearest_hit
-from ..ops.aa_scene import A_BASE, A_HT, A_WT, F_AA, AARects
+from ..ops.aa_scene import A_BASE, A_HT, A_SN, A_WT, F_AA, AARects
 from ..ops.device_scene import Emitters
 from ..ops.sampling import TWO_PI_REF, base_cols
 from ..ops.splat import (
@@ -153,6 +153,34 @@ def aa_nearest(fields, group_counts):
         hn = tuple(torch.where(baxis == a, bsign, zero) for a in range(3))
         return best, btex, hn, bslot
     return nearest
+
+
+def trace_bases(fields, group_counts, em_vec):
+    """Plain model of the bases the axis-aligned trace kernels build once
+    per block (`stage_scene`, csrc/trace_wide.cuh) in place of a
+    build_base per photon and diffuse bounce. Returns (the [6, 6] bases of
+    the six axis normals, row 2a + (sign < 0) holding u then v of the
+    normal with `sign` on axis a and +0 elsewhere; the emitter's [6] basis;
+    whether the axis bases equal `base_cols` at every rect's hit normal
+    bit for bit, which the kernels check and, where it fails, build the
+    basis at each diffuse bounce as this module's plain trace does)."""
+    k = torch.arange(6)
+    axis, sign = k // 2, torch.where(k % 2 == 1, -1.0, 1.0)
+    zero = torch.zeros(6)
+    u, v = base_cols(*(torch.where(axis == a, sign, zero) for a in range(3)))
+    axis_bases = torch.stack(u + v, -1)
+    u, v = base_cols(*(em_vec[9 + a].reshape(1).cpu() for a in range(3)))
+    emitter = torch.stack(u + v, -1)[0]
+    sn = fields[A_SN].cpu()
+    j = torch.arange(sn.shape[0])
+    g0, g1 = int(group_counts[0]), int(group_counts[1])
+    a_j = (j >= g0).long() + (j >= g0 + g1).long()
+    zero = torch.zeros_like(sn)
+    u, v = base_cols(*(torch.where(a_j == a, sn, zero) for a in range(3)))
+    at_rects = torch.stack(u + v, -1)
+    want = axis_bases[2 * a_j + (sn < 0).long()]
+    exact = torch.equal(at_rects.view(torch.int32), want.view(torch.int32))
+    return axis_bases, emitter, exact
 
 
 def _trace_chunk(nearest, em, draw, n_valid, cfg, pid, albedo_aa=None):
@@ -458,29 +486,19 @@ def _check_albedo(albedo_aa, n):
 
 
 def _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid, cfg,
-                    transposed=False, **more):
-    """Checks of the uniforms-in wrappers: uniforms [B, U] f32 (with
-    `transposed`, [U, B]), U = 4 + 3 * max_depth, contiguous on the scene
-    table's device; `more` as in `_check_batch`. Returns (N, B)."""
+                    **more):
+    """Checks of the uniforms-in wrappers: uniforms [U, B] f32, U = 4 + 3 *
+    max_depth, contiguous on the scene table's device (the plain versions
+    read its [B, U] view `uniforms.t()`); `more` as in `_check_batch`.
+    Returns (N, B)."""
     U = uniforms_per_photon(cfg.max_depth)
-    want = "[U, B]" if transposed else "[B, U]"
-    if uniforms.dim() != 2 or uniforms.shape[0 if transposed else 1] != U:
-        raise ValueError(f"uniforms must be {want} with U = {U}, got "
+    if uniforms.dim() != 2 or uniforms.shape[0] != U:
+        raise ValueError(f"uniforms must be [U, B] with U = {U}, got "
                          f"{tuple(uniforms.shape)}")
-    B = uniforms.shape[1 if transposed else 0]
+    B = uniforms.shape[1]
     n = _check_batch(fields, group_counts, em_vec, n_valid, B,
                      uniforms=uniforms, **more)
     return n, B
-
-
-def _uniforms_of(uniforms, transposed):
-    """(the [B, U] view the plain versions read, the [U, B] tensor the
-    kernels read); the second is made only on a CUDA device."""
-    if transposed:
-        return uniforms.t(), uniforms
-    if uniforms.device.type == "cpu":
-        return uniforms, None
-    return uniforms, uniforms.t().contiguous()
 
 
 def _check_acc(out, num_texels, dev):
@@ -676,12 +694,12 @@ def trace_splat_wide_diff_i8(
     fields: torch.Tensor, group_counts, albedo_aa: torch.Tensor,
     em_vec: torch.Tensor, uniforms: torch.Tensor, n_valid: int,
     cfg: PhotonConfig, num_texels: int, inv_scale: torch.Tensor,
-    out: torch.Tensor = None, transposed: bool = False,
+    out: torch.Tensor = None,
 ) -> torch.Tensor:
     """`trace_splat_wide_diff_rng_i8` with the draws passed in (`fit
-    --no-device-rng`): photon p draws column c from uniforms[p, c] ([B, U]
-    f32, or its [U, B] transpose with `transposed`; the threefry draws of
-    `ops.threefry.batch_uniforms`). Returns the int32 [num_texels, 3]
+    --no-device-rng`): photon p draws column c from uniforms[c, p] ([U, B]
+    f32, the threefry draws of `ops.threefry.batch_uniforms(...,
+    transposed=True)`). Returns the int32 [num_texels, 3]
     accumulator on the run-time grid `inv_scale`.
 
     CUDA tensors launch `csrc/trace_splat_wide_diff_rng.cu` (the port of
@@ -689,20 +707,20 @@ def trace_splat_wide_diff_i8(
     launch raises. CPU tensors run the plain version. `out`, if given, is
     zeroed and filled."""
     n, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
-                           cfg, transposed, albedo_aa=albedo_aa,
+                           cfg, albedo_aa=albedo_aa,
                            inv_scale=inv_scale)
     _check_diff(n, albedo_aa, inv_scale, 1, "inv_scale")
     check_i8_accumulator(cfg, B)
     dev = fields.device
     out = _check_acc(out, num_texels, dev)
-    u, u_t = _uniforms_of(uniforms, transposed)
+    u = uniforms.t()
     if dev.type == "cpu":
         idx, col, _ = trace_uniforms_plain(fields, group_counts, em_vec, u,
                                            n_valid, cfg, albedo_aa)
         return splat_i8_plain(idx, col, num_texels, float(inv_scale), out)
     launch("fm_trace_splat_wide_diff_i8", dev,
            fields.data_ptr(), albedo_aa.data_ptr(), em_vec.data_ptr(),
-           u_t.data_ptr(), inv_scale.data_ptr(), out.data_ptr(), B,
+           uniforms.data_ptr(), inv_scale.data_ptr(), out.data_ptr(), B,
            *_trace_args(fields, group_counts, 0, n_valid, cfg, num_texels))
     trace_splat_wide_diff_i8.launches += 1
     return out
@@ -715,7 +733,6 @@ def trace_splat_wide_diff_f32(
     fields: torch.Tensor, group_counts, albedo_aa: torch.Tensor,
     em_vec: torch.Tensor, uniforms: torch.Tensor, n_valid: int,
     cfg: PhotonConfig, num_texels: int, fixed: torch.Tensor,
-    transposed: bool = False,
 ) -> torch.Tensor:
     """`trace_splat_wide_diff_rng_f32` with the draws passed in (uniforms
     as in `trace_splat_wide_diff_i8`): the f32 [num_texels, 3] lightmap
@@ -726,10 +743,10 @@ def trace_splat_wide_diff_f32(
     launch raises. CPU tensors run the plain version, which sums in f32
     and does not read `fixed`."""
     n, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
-                           cfg, transposed, albedo_aa=albedo_aa, fixed=fixed)
+                           cfg, albedo_aa=albedo_aa, fixed=fixed)
     _check_diff(n, albedo_aa, fixed, 2, "fixed")
     dev = fields.device
-    u, u_t = _uniforms_of(uniforms, transposed)
+    u = uniforms.t()
     if dev.type == "cpu":
         idx, col, _ = trace_uniforms_plain(fields, group_counts, em_vec, u,
                                            n_valid, cfg, albedo_aa)
@@ -737,7 +754,7 @@ def trace_splat_wide_diff_f32(
     out = _launch_f32(
         "fm_trace_splat_wide_diff_f32", dev, num_texels,
         (fields.data_ptr(), albedo_aa.data_ptr(), em_vec.data_ptr(),
-         u_t.data_ptr(), fixed.data_ptr()),
+         uniforms.data_ptr(), fixed.data_ptr()),
         (B, *_trace_args(fields, group_counts, 0, n_valid, cfg,
                          num_texels)))
     trace_splat_wide_diff_f32.launches += 1
@@ -825,7 +842,7 @@ trace_fold_wide_rng.launches = 0
 def trace_fold_wide(
     fields: torch.Tensor, group_counts, albedo_aa: torch.Tensor,
     em_vec: torch.Tensor, g_c: torch.Tensor, uniforms: torch.Tensor,
-    n_valid: int, cfg: PhotonConfig, n_slots: int, transposed: bool = False,
+    n_valid: int, cfg: PhotonConfig, n_slots: int,
 ):
     """`trace_fold_wide_rng` with the draws passed in (uniforms as in
     `trace_splat_wide_diff_i8`): the backward of `fit --no-device-rng`,
@@ -836,15 +853,15 @@ def trace_fold_wide(
     photon_pallas_wide.trace_fold_wide); a failed build or launch raises.
     CPU tensors run the plain version (`fold_plain`)."""
     n, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
-                           cfg, transposed, albedo_aa=albedo_aa, g_c=g_c)
+                           cfg, albedo_aa=albedo_aa, g_c=g_c)
     _check_fold(n, fields, albedo_aa, g_c, cfg, n_slots)
-    u, u_t = _uniforms_of(uniforms, transposed)
+    u = uniforms.t()
     if fields.device.type == "cpu":
         idx, col, ridx = trace_uniforms_plain(fields, group_counts, em_vec, u,
                                               n_valid, cfg, albedo_aa)
         return fold_plain(idx, col, ridx, g_c, n)
     out = _launch_fold("fm_trace_fold_wide", fields, albedo_aa, em_vec, g_c,
-                       (u_t.data_ptr(),),
+                       (uniforms.data_ptr(),),
                        (B, *_trace_args(fields, group_counts, 0, n_valid,
                                         cfg, g_c.shape[0])), n, n_valid)
     trace_fold_wide.launches += 1
@@ -914,26 +931,25 @@ trace_deposits_wide_rng.launches = 0
 def trace_deposits_wide(
     fields: torch.Tensor, group_counts, em_vec: torch.Tensor,
     uniforms: torch.Tensor, n_valid: int, cfg: PhotonConfig,
-    block: int = None, transposed: bool = False,
+    block: int = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`trace_deposits_wide_rng` with the draws passed in: photon p draws
-    column c from uniforms[p, c] ([B, U] f32, U = 4 + 3 * max_depth, or its
-    [U, B] transpose with `transposed`; the threefry draws of
-    `ops.threefry.batch_uniforms`).
+    column c from uniforms[c, p] ([U, B] f32, U = 4 + 3 * max_depth; the
+    threefry draws of `ops.threefry.batch_uniforms(..., transposed=True)`).
 
     CUDA tensors launch `csrc/trace_deposits_wide.cu` (the port of
-    photon_pallas_wide.trace_deposits_wide) on the [U, B] layout (a
-    transposed copy of [B, U] uniforms); a failed build or launch raises.
+    photon_pallas_wide.trace_deposits_wide); a failed build or launch raises.
     CPU tensors run the plain version."""
     _, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
-                           cfg, transposed)
+                           cfg)
     block = _stream_block_of(B, block)
-    u, u_t = _uniforms_of(uniforms, transposed)
+    u = uniforms.t()
     if fields.device.type == "cpu":
         return trace_deposits_wide_plain(fields, group_counts, em_vec, u,
                                          n_valid, cfg, block)
     out = _launch_stream("fm_trace_deposits_wide", fields, group_counts,
-                         em_vec, (u_t.data_ptr(),), n_valid, B, cfg, block)
+                         em_vec, (uniforms.data_ptr(),), n_valid, B, cfg,
+                         block)
     trace_deposits_wide.launches += 1
     return out
 
@@ -944,7 +960,7 @@ trace_deposits_wide.launches = 0
 def trace_deposits_wide_diff(
     fields: torch.Tensor, group_counts, albedo_aa: torch.Tensor,
     em_vec: torch.Tensor, uniforms: torch.Tensor, n_valid: int,
-    cfg: PhotonConfig, block: int, transposed: bool = False,
+    cfg: PhotonConfig, block: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The diff renderer's deposit stream of one batch (`fit --splat
     scatter|bucket|bucket_exact`, forward and backward): `trace_deposits_wide`
@@ -958,17 +974,17 @@ def trace_deposits_wide_diff(
     photon_pallas_wide.trace_deposits_wide_diff); a failed build or launch
     raises. CPU tensors run the plain version."""
     n, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
-                           cfg, transposed, albedo_aa=albedo_aa)
+                           cfg, albedo_aa=albedo_aa)
     _check_albedo(albedo_aa, n)
     block = _stream_block_of(B, block)
-    u, u_t = _uniforms_of(uniforms, transposed)
+    u = uniforms.t()
     if fields.device.type == "cpu":
         return trace_deposits_wide_diff_plain(fields, group_counts,
                                               albedo_aa, em_vec, u, n_valid,
                                               cfg, block)
     out = _launch_stream("fm_trace_deposits_wide_diff", fields, group_counts,
-                         em_vec, (u_t.data_ptr(),), n_valid, B, cfg, block,
-                         albedo_aa=albedo_aa)
+                         em_vec, (uniforms.data_ptr(),), n_valid, B, cfg,
+                         block, albedo_aa=albedo_aa)
     trace_deposits_wide_diff.launches += 1
     return out
 
@@ -979,11 +995,11 @@ trace_deposits_wide_diff.launches = 0
 def trace_splat_wide_i8(
     fields: torch.Tensor, group_counts, em_vec: torch.Tensor,
     uniforms: torch.Tensor, n_valid: int, cfg: PhotonConfig,
-    num_texels: int, out: torch.Tensor = None, transposed: bool = False,
+    num_texels: int, out: torch.Tensor = None,
 ) -> torch.Tensor:
     """`trace_splat_wide_rng_i8` with the draws passed in: photon p draws
-    column c from uniforms[p, c] ([B, U] f32, or its [U, B] transpose with
-    `transposed`; the threefry draws of `ops.threefry.batch_uniforms`).
+    column c from uniforms[c, p] ([U, B] f32, the threefry draws of
+    `ops.threefry.batch_uniforms(..., transposed=True)`).
     Returns the int32 [num_texels, 3] accumulator of the batch's 7-bit
     deposits, dithered per photon as the default kernel dithers (de-scale
     with `splat_color_scale(cfg)`).
@@ -993,17 +1009,17 @@ def trace_splat_wide_i8(
     failed build or launch raises. CPU tensors run the plain version.
     `out`, if given, is zeroed and filled."""
     _, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
-                           cfg, transposed)
+                           cfg)
     check_i8_accumulator(cfg, B)
     dev = fields.device
     out = _check_acc(out, num_texels, dev)
-    u, u_t = _uniforms_of(uniforms, transposed)
+    u = uniforms.t()
     if dev.type == "cpu":
         return trace_splat_wide_plain(fields, group_counts, em_vec, u,
                                       n_valid, cfg, num_texels, True, out)
     inv_s = float(np.float32(1.0 / splat_color_scale(cfg)))
     launch("fm_trace_splat_wide_i8", dev,
-           fields.data_ptr(), em_vec.data_ptr(), u_t.data_ptr(),
+           fields.data_ptr(), em_vec.data_ptr(), uniforms.data_ptr(),
            out.data_ptr(), B,
            *_trace_args(fields, group_counts, 0, n_valid, cfg, num_texels),
            np.float32(inv_s))
@@ -1017,7 +1033,7 @@ trace_splat_wide_i8.launches = 0
 def trace_splat_wide_f32(
     fields: torch.Tensor, group_counts, em_vec: torch.Tensor,
     uniforms: torch.Tensor, n_valid: int, cfg: PhotonConfig,
-    num_texels: int, transposed: bool = False,
+    num_texels: int,
 ) -> torch.Tensor:
     """`trace_splat_wide_rng_f32` with the draws passed in (uniforms as in
     `trace_splat_wide_i8`): the f32 [num_texels, 3] lightmap increment of
@@ -1028,15 +1044,15 @@ def trace_splat_wide_f32(
     photon_pallas_wide.trace_splat_wide(i8=False)) on the [U, B] layout; a
     failed build or launch raises. CPU tensors run the plain version."""
     _, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
-                           cfg, transposed)
+                           cfg)
     dev = fields.device
-    u, u_t = _uniforms_of(uniforms, transposed)
+    u = uniforms.t()
     if dev.type == "cpu":
         return trace_splat_wide_plain(fields, group_counts, em_vec, u,
                                       n_valid, cfg, num_texels, False)
     out = _launch_f32(
         "fm_trace_splat_wide_f32", dev, num_texels,
-        (fields.data_ptr(), em_vec.data_ptr(), u_t.data_ptr()),
+        (fields.data_ptr(), em_vec.data_ptr(), uniforms.data_ptr()),
         (B, *_trace_args(fields, group_counts, 0, n_valid, cfg, num_texels),
          *_stream_fixed(cfg)))
     trace_splat_wide_f32.launches += 1
@@ -1155,9 +1171,7 @@ def render_all_wide(fields, group_counts, emitters: Emitters,
                           else trace_splat_wide_rng_f32)
                 draws = (rng.batch_seed(cfg.seed, gb), nv, bsz)
             else:
-                kernel = functools.partial(
-                    trace_splat_wide_i8 if i8 else trace_splat_wide_f32,
-                    transposed=True)
+                kernel = trace_splat_wide_i8 if i8 else trace_splat_wide_f32
                 draws = (threefry.batch_uniforms(cfg.seed, gb, bsz, U, dev,
                                                  transposed=True), nv)
             if i8:
@@ -1179,7 +1193,7 @@ def render_all_wide(fields, group_counts, emitters: Emitters,
             u = threefry.batch_uniforms(cfg.seed, gb, bsz, U, dev,
                                         transposed=True)
             idx, col = trace_deposits_wide(fields, group_counts, ev(e), u,
-                                           nv, cfg, block, transposed=True)
+                                           nv, cfg, block)
         splat_stream(lm, idx, col, cfg)
     return lm
 

@@ -391,7 +391,8 @@ def _stream_inputs(name, dev, batch):
     from flatmatch_tpu_torch.ops import threefry
 
     aa_c, total_c, ev = _inputs(name, dev)
-    u = threefry.batch_uniforms(3, 11, batch, pw.uniforms_per_photon(8), dev)
+    u = threefry.batch_uniforms(3, 11, batch, pw.uniforms_per_photon(8), dev,
+                                transposed=True)
     return aa_c, total_c, ev, u
 
 
@@ -410,8 +411,8 @@ def _traces(aa_c, ev, u, n_valid, batch, block=None):
              f, gc, ev, seed, n_valid, batch, cfg)[:2], blk)),
         ("trace_deposits_wide",
          lambda: pw.trace_deposits_wide(f, gc, ev, u, n_valid, cfg, block),
-         lambda: pw.trace_deposits_wide_plain(f, gc, ev, u, n_valid, cfg,
-                                              blk)),
+         lambda: pw.trace_deposits_wide_plain(f, gc, ev, u.t(), n_valid,
+                                              cfg, blk)),
     ]
 
 
@@ -521,6 +522,8 @@ def test_stream_wrappers_refuse_bad_inputs(dev):
         pw.trace_deposits_wide(f, gc, ev, u.double(), 8, cfg)
     with pytest.raises(ValueError):             # [U, B], not contiguous
         pw.trace_deposits_wide(f, gc, ev, u.t().contiguous().t(), 8, cfg)
+    with pytest.raises(ValueError):             # [B, U]
+        pw.trace_deposits_wide(f, gc, ev, u.t().contiguous(), 8, cfg)
     with pytest.raises(ValueError):             # U of another depth
         pw.trace_deposits_wide(f, gc, ev, u, 8, _stream_cfg(max_depth=6))
     with pytest.raises(ValueError):             # block does not divide
@@ -588,7 +591,7 @@ def test_stream_trace_launch_refused_for_its_shared_memory(dev):
     assert 4 * 13 * big.shape[1] > 232448
     cfg = _stream_cfg()
     idx, col = pw.trace_deposits_wide(big, gc, ev, u, 200, cfg)
-    pidx, pcol = pw.trace_deposits_wide_plain(big, gc, ev, u, 200, cfg,
+    pidx, pcol = pw.trace_deposits_wide_plain(big, gc, ev, u.t(), 200, cfg,
                                               pw.stream_block(256))
     assert pcol.sum().item() > 0
     assert torch.equal(idx, pidx) and torch.equal(col, pcol)
@@ -635,12 +638,12 @@ def _inkernel_calls(name, dev, n_valid, batch, power=1.7):
                                                       n_valid, batch, cfg, T)),
         "trace_splat_wide_i8": (
             lambda: pw.trace_splat_wide_i8(f, gc, ev0, u, n_valid, cfg, T),
-            lambda: pw.trace_splat_wide_plain(f, gc, ev0, u, n_valid, cfg, T,
-                                              True)),
+            lambda: pw.trace_splat_wide_plain(f, gc, ev0, u.t(), n_valid,
+                                              cfg, T, True)),
         "trace_splat_wide_f32": (
             lambda: pw.trace_splat_wide_f32(f, gc, ev0, u, n_valid, cfg, T),
-            lambda: pw.trace_splat_wide_plain(f, gc, ev0, u, n_valid, cfg, T,
-                                              False)),
+            lambda: pw.trace_splat_wide_plain(f, gc, ev0, u.t(), n_valid,
+                                              cfg, T, False)),
         "trace_splat_wide_diff_rng_f32": (
             lambda: pw.trace_splat_wide_diff_rng_f32(
                 f, gc, alb, ev, seed, n_valid, batch, cfg, T, fixed),
@@ -838,14 +841,15 @@ def _diff_uniform_calls(name, dev, n_valid, batch, power=1.7):
 
     aa_c, T, alb, ev, inv = _diff_inputs(name, dev, power)
     f, gc, cfg = aa_c.fields, aa_c.group_counts, CFG.photon
-    u = threefry.batch_uniforms(cfg.seed, 9, batch, 28, dev)
+    u = threefry.batch_uniforms(cfg.seed, 9, batch, 28, dev,
+                                transposed=True)
     fixed = prender.fixed_pair(cfg, torch.tensor([power], device=dev), alb,
                                batch)
     g = torch.from_numpy(np.random.RandomState(5).rand(T, 3)
                          .astype(np.float32)).to(dev)
     n = f.shape[1]
     block = prender.diff_block(batch)
-    plain = pw.trace_uniforms_plain(f, gc, ev, u, n_valid, cfg, alb)
+    plain = pw.trace_uniforms_plain(f, gc, ev, u.t(), n_valid, cfg, alb)
     return {
         "trace_deposits_wide_diff": (
             lambda: pw.trace_deposits_wide_diff(f, gc, alb, ev, u, n_valid,
@@ -918,7 +922,8 @@ def test_diff_uniform_kernels_at_defaults_equal_production(dev):
     from flatmatch_tpu_torch.ops import threefry
 
     cfg = CFG.photon
-    u = threefry.batch_uniforms(cfg.seed, 9, 131072, 28, dev)
+    u = threefry.batch_uniforms(cfg.seed, 9, 131072, 28, dev,
+                                transposed=True)
     f, gc = aa_c.fields, aa_c.group_counts
     assert torch.equal(calls["trace_splat_wide_diff_i8"][0](),
                        pw.trace_splat_wide_i8(f, gc, ev, u, 131072, cfg, T))
@@ -1023,7 +1028,7 @@ def test_kernels_past_the_old_shared_memory_cap(dev):
     cfg = CFG.photon
     B, nv = 512, 500
     seed = rng.batch_seed(cfg.seed, 3)
-    u = threefry.batch_uniforms(cfg.seed, 3, B, 28, dev)
+    u = threefry.batch_uniforms(cfg.seed, 3, B, 28, dev, transposed=True)
     g = torch.from_numpy(np.random.RandomState(5).rand(T, 3)
                          .astype(np.float32)).to(dev)
     fixed = prender.fixed_pair(cfg, torch.tensor([1.7], device=dev), alb, B)
@@ -1045,7 +1050,7 @@ def test_kernels_past_the_old_shared_memory_cap(dev):
     # against the plain versions on the big table
     plain = pw.trace_deposits_rng_plain(big, gc, ev, seed, nv, B, cfg,
                                         alb_big)
-    uplain = pw.trace_uniforms_plain(big, gc, ev, u, nv, cfg, alb_big)
+    uplain = pw.trace_uniforms_plain(big, gc, ev, u.t(), nv, cfg, alb_big)
     assert torch.equal(pw.trace_splat_wide_diff_rng_i8(
         big, gc, alb_big, ev, seed, nv, B, cfg, T, inv),
         pw.splat_i8_plain(plain[0], plain[1], T, inv.item()))
@@ -1145,6 +1150,66 @@ def test_threefry_tier_wrappers_raise_on_a_failed_launch(dev, kernel,
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         run()
     assert wrapper.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["shared", "device", "inexact_sign"])
+def test_rows_6_and_9_match_plain_in_each_table_instance(dev, table):
+    """Rows 6 and 9 (the diff stream, the uniforms-in fold) against their
+    plain versions with a dead tail, on tiny's table in each instance of
+    the redesigned trace: staged as per-rect records in shared memory
+    (`shared`); every rect repeated 400 times in place (5,200 rects, past
+    shared memory: the device-memory instance); and one rect's sign moved
+    to 1.0006226, off the range where the six axis bases stand for
+    build_base (photon_wide.trace_bases), so the shared-memory instance
+    builds each basis at the bounce. Row 6 equals its plain stream on every
+    row, row 9 within rtol 1e-4 of the plain fold; two runs of each give
+    the same bits."""
+    from flatmatch_tpu_torch.ops import threefry
+    from flatmatch_tpu_torch.ops.aa_scene import A_SN
+
+    aa_c, T, alb, ev, _ = _diff_inputs("tiny", dev)
+    f, gc = aa_c.fields, aa_c.group_counts
+    if table == "device":
+        f, gc = _big_table(aa_c, 400)
+        alb = alb.repeat_interleave(400).contiguous()
+        assert 4 * 14 * f.shape[1] > 232448
+    elif table == "inexact_sign":
+        f = f.clone()
+        f[A_SN, 1] = torch.sign(f[A_SN, 1]) * np.float32(1.0006226)
+        assert not pw.trace_bases(f, gc, ev)[2]
+    else:
+        assert pw.trace_bases(f, gc, ev)[2]
+    cfg, n = CFG.photon, f.shape[1]
+    n_valid, batch = 1000, 1024
+    u = threefry.batch_uniforms(cfg.seed, 9, batch, 28, dev, transposed=True)
+    g = torch.from_numpy(np.random.RandomState(5).rand(T, 3)
+                         .astype(np.float32)).to(dev)
+    block = prender.diff_block(batch)
+    plain = pw.trace_uniforms_plain(f, gc, ev, u.t(), n_valid, cfg, alb)
+    assert plain[1].sum().item() > 0 and (plain[2] >= 0).any()
+
+    def row6():
+        return pw.trace_deposits_wide_diff(f, gc, alb, ev, u, n_valid, cfg,
+                                           block)
+
+    def row9():
+        return pw.trace_fold_wide(f, gc, alb, ev, g, u, n_valid, cfg, n)
+
+    a, b = row6(), row6()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for x, y in zip(a, pw.stream_rows(plain[0], plain[1], block, plain[2])):
+        assert torch.equal(x, y)
+    (da, w), (da2, w2) = row9(), row9()
+    torch.cuda.synchronize()
+    assert torch.equal(da, da2) and torch.equal(w, w2)
+    want_da, want_w = pw.fold_plain(*plain, g, n)
+    assert want_da.abs().sum().item() > 0
+    np.testing.assert_allclose(da.cpu().numpy(), want_da.cpu().numpy(),
+                               rtol=1e-4,
+                               atol=1e-6 * want_da.abs().max().item())
+    np.testing.assert_allclose(w.item(), want_w.item(), rtol=1e-4)
 
 
 # --------------------------------------------------------------------------

@@ -150,8 +150,9 @@ def _port(t):
 def test_row6_diff_stream_matches_jax(t, jax_stream):
     f, gc, alb, u = _port(t)
     before = pw.trace_deposits_wide_diff.launches
-    idx, col, ridx = pw.trace_deposits_wide_diff(f, gc, alb, t["pev"], u,
-                                                 N_VALID, CFG, block=128)
+    idx, col, ridx = pw.trace_deposits_wide_diff(f, gc, alb, t["pev"],
+                                                 u.t().contiguous(), N_VALID,
+                                                 CFG, block=128)
     assert pw.trace_deposits_wide_diff.launches == before   # plain
     jidx, jcol, jridx = jax_stream
     assert idx.shape == (B * 8,) and ridx.dtype == torch.int32
@@ -159,10 +160,9 @@ def test_row6_diff_stream_matches_jax(t, jax_stream):
     np.testing.assert_array_equal(idx.numpy(), jidx)
     np.testing.assert_array_equal(ridx.numpy(), jridx)
     np.testing.assert_allclose(col.numpy(), jcol, rtol=1e-6, atol=0)
-    # the transposed uniforms give the same stream
-    again = pw.trace_deposits_wide_diff(f, gc, alb, t["pev"],
-                                        u.t().contiguous(), N_VALID, CFG,
-                                        block=128, transposed=True)
+    # the wrapper on the [U, B] uniforms is the plain version on [B, U]
+    again = pw.trace_deposits_wide_diff_plain(f, gc, alb, t["pev"], u,
+                                              N_VALID, CFG, 128)
     assert all(torch.equal(a, b) for a, b in zip(again, (idx, col, ridx)))
 
 
@@ -226,7 +226,7 @@ def _batch0(t, pr, albedo, power):
     assert (e, gb, nv, bsz) == (0, 0, N_LIVE, B)
     alb = torch.from_numpy(albedo)[pr.perm].contiguous()
     ev, grid = pr.emitter_grid(e, torch.from_numpy(power), alb)
-    u = threefry.batch_uniforms(CFG.seed, gb, bsz, U)
+    u = threefry.batch_uniforms(CFG.seed, gb, bsz, U, transposed=True)
     return alb, ev, grid, pr.aa_c.fields, pr.aa_c.group_counts, u
 
 
@@ -279,9 +279,9 @@ def test_row9_fold_matches_jax(t, renderers, jax_renders):
     np.testing.assert_allclose(da.numpy(), want, rtol=1e-4,
                                atol=1e-6 * np.abs(want).max())
     np.testing.assert_allclose(w_sum.item(), gp[0] * power[0], rtol=1e-4)
-    # the transposed uniforms give the same bits
-    again = pw.trace_fold_wide(f, gc, alb, ev, g_c, u.t().contiguous(),
-                               N_LIVE, CFG, t["n"], transposed=True)
+    # the wrapper on the [U, B] uniforms is the plain fold on [B, U]
+    again = pw.fold_plain(*pw.trace_uniforms_plain(
+        f, gc, ev, u.t(), N_LIVE, CFG, alb), g_c, t["n"])
     assert torch.equal(again[0], da) and torch.equal(again[1], w_sum)
 
 
@@ -378,8 +378,9 @@ def test_stream_fold_is_the_jax_fold_with_unrounded_g(t):
     JAX writes it (diff/render.py:488-500), with g unrounded: bf16 rounding
     of g would move da by far more than the f32 order."""
     f, gc, alb, u = _port(t)
-    idx, col, ridx = pw.trace_deposits_wide_diff(f, gc, alb, t["pev"], u,
-                                                 N_VALID, CFG, block=128)
+    idx, col, ridx = pw.trace_deposits_wide_diff(f, gc, alb, t["pev"],
+                                                 u.t().contiguous(), N_VALID,
+                                                 CFG, block=128)
     g = torch.from_numpy(t["g"])
     da, w_sum = prender.stream_fold(idx, col, ridx, g, t["n"], 128, 8)
     w = (g[idx.long()].double() * col.double()).sum(-1)

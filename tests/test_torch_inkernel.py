@@ -139,8 +139,9 @@ def _port_args(t):
 
 
 def _port_uniforms(t):
-    u = threefry.batch_uniforms(CFG.seed, GLOBAL_BATCH, B, U)
-    assert torch.equal(u, torch.from_numpy(np.array(t["uniforms"])))
+    u = threefry.batch_uniforms(CFG.seed, GLOBAL_BATCH, B, U,
+                                transposed=True)
+    assert torch.equal(u.t(), torch.from_numpy(np.array(t["uniforms"])))
     return u
 
 
@@ -243,12 +244,12 @@ def test_fixed_pair_is_the_stream_scale_at_the_defaults():
 def test_inkernel_wrappers_check_inputs(t):
     f, gc, ev = _port_args(t)
     T, n = t["total_c"], t["n"]
-    u = threefry.batch_uniforms(0, 0, 256, U)
+    u = threefry.batch_uniforms(0, 0, 256, U, transposed=True)
     alb = torch.full((n,), 0.9)
     fixed = torch.ones(2)
     for fn in (pw.trace_splat_wide_i8, pw.trace_splat_wide_f32):
         with pytest.raises(ValueError):      # U != 4 + 3 * max_depth
-            fn(f, gc, ev, u[:, :27].contiguous(), 8, CFG, T)
+            fn(f, gc, ev, u[:27].contiguous(), 8, CFG, T)
         with pytest.raises(ValueError):      # float64 uniforms
             fn(f, gc, ev, u.double(), 8, CFG, T)
         with pytest.raises(ValueError):      # n_valid past the batch

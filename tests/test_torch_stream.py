@@ -167,7 +167,8 @@ def _check_stream(got, want):
 
 def test_stream_trace_matches_jax(tables, jax_stream):
     t = tables
-    u = threefry.batch_uniforms(CFG.seed, GLOBAL_BATCH, B, U)
+    u = threefry.batch_uniforms(CFG.seed, GLOBAL_BATCH, B, U,
+                                transposed=True)
     before = pw.trace_deposits_wide.launches
     got = pw.trace_deposits_wide(t["port_aa"].fields,
                                  t["port_aa"].group_counts, t["port_ev"], u,
@@ -244,13 +245,13 @@ def test_splat_wrappers_refuse_bad_streams():
 def test_stream_wrappers_check_inputs(tables):
     t = tables
     f, gc, ev = t["port_aa"].fields, t["port_aa"].group_counts, t["port_ev"]
-    u = threefry.batch_uniforms(0, 0, 256, U)
+    u = threefry.batch_uniforms(0, 0, 256, U, transposed=True)
     with pytest.raises(ValueError):          # block does not divide
         pw.trace_deposits_wide_rng(f, gc, ev, 0, 8, 256, CFG, block=96)
     with pytest.raises(ValueError):          # batch not a multiple of 128
         pw.trace_deposits_wide_rng(f, gc, ev, 0, 8, 200, CFG)
     with pytest.raises(ValueError):          # U != 4 + 3 * max_depth
-        pw.trace_deposits_wide(f, gc, ev, u[:, :27].contiguous(), 8, CFG)
+        pw.trace_deposits_wide(f, gc, ev, u[:27].contiguous(), 8, CFG)
     with pytest.raises(ValueError):          # float64 uniforms
         pw.trace_deposits_wide(f, gc, ev, u.double(), 8, CFG)
     with pytest.raises(ValueError):          # n_valid past the batch
