@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from flatmatch_tpu_torch/csrc and drives the port's
-eight groups of paths on the card:
+nine groups of paths on the card:
 - the render: the production kernel against its plain PyTorch version,
   `tests/fixtures/mini.png` through the port's CLI at its defaults, the
   physics against the reference C engine's golden lightmap, and a 4x4
@@ -58,8 +58,20 @@ eight groups of paths on the card:
   1-10) on mini, on the 4x4 tiling and, in its device-memory instances, on
   mini tiled 13x13, against its plain version and rerun bit for bit, with
   its time per batch beside its bound, its registers and its blocks per SM
-  (phase 36).
-Any failure exits non-zero. The line before the card's name lists every
+  (phase 36);
+- the redesigned stream splat (csrc/splat_stream.cu, row 16) and the
+  threefry kernel: on batch 0's 1M-row stream of mini (the arena
+  accumulator), the 4x4 tiling and mini tiled 13x13 (the paged one), row 16
+  with bf16 and f32 colors and adding into a lightmap against
+  fused_splat_fixed_plain bit for bit, and the threefry draws (flat,
+  transposed, radiosity's chunk) against their plain version bit for bit,
+  each with its device ms and host µs per call, share of the bound,
+  registers, shared bytes, blocks per SM and accumulator instance (phase
+  37).
+The kernels line's times, and phase 37's, are device times (device_ms:
+the calls queued behind a device sleep, so that no host work hides in
+them); the phases' other times bracket a host loop of calls with events
+(cuda_ms). Any failure exits non-zero. The line before the card's name lists every
 kernel with its launches on its path, its error against its plain version,
 its time, the plain version's time and its bound. The last line of standard
 output is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
@@ -176,14 +188,18 @@ FOLD_OPS_PER_BOUNCE = 10
 # scaling and conversion
 SPLAT_I8_OPS = 20
 SPLAT_F32_OPS = 6
-# the threefry kernel per element (csrc/threefry.cu): 20 rounds of add,
-# funnel-shift rotate and xor, the key injections, the counter split and
-# the conversion, about 80 integer operations, at the card's int32 rate:
-# 64 INT32 lanes per SM, 132 SMs on the H100 SXM, at its 1.98 GHz boost
-# clock (one operation per lane and cycle; the FP32 figure of 67 TFLOP/s
-# counts a fused multiply-add as two)
-THREEFRY_OPS = 80
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# the threefry function per element, counted in the SASS of
+# csrc/threefry.cu (cuobjdump -sass, PERF.md): the counter's add, 20 rounds
+# of add, funnel-shift rotate and xor, the five x1 key injections, the last
+# x0 injection (the others fold into the next round's three-input add), the
+# xor of the two words, the shift and the two-instruction conversion: 71,
+# loads, stores, addresses and loop control left out. The rate is the
+# card's integer issue: 128 thread operations per SM and cycle (four warp
+# schedulers of 32 lanes, the ALU and FMA pipes together: the FMA pipe
+# issues integer adds as IMAD), 132 SMs at the 1.98 GHz boost clock, half
+# the 67 TFLOP/s of f32, which counts a fused multiply-add as two
+THREEFRY_OPS = 71
+INT32_OPS_PER_S = 128 * 132 * 1.98e9
 
 
 def rotated_scene(scene, degrees):
@@ -250,6 +266,52 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+# the SM clock that torch.cuda._sleep counts (the H100 SXM's boost clock;
+# a lower clock only makes the sleep longer)
+SLEEP_CYCLES_PER_S = 1.98e9
+
+
+def device_ms(fn, reps):
+    """(device ms, host µs) per call of fn(), after one warm-up. cuda_ms
+    brackets the host's loop of calls with events, so a wrapper whose host
+    work (allocation, the ctypes launch, checks) outlasts its kernels times
+    the host. Here the reps calls are queued behind torch.cuda._sleep,
+    long enough that the host has enqueued them all before the card wakes,
+    and the events bracket the queued calls: the card then runs them back
+    to back. The host µs is the enqueue time of one call. If the host still
+    outran the sleep, the sleep is doubled and the run repeated."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    sleep_s = 2 * host_s + 1e-3
+    for _ in range(4):
+        torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
+        t = time.perf_counter()
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        queued_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        if queued_s < sleep_s:
+            return t0.elapsed_time(t1) / reps, queued_s / reps * 1e6
+        sleep_s *= 2
+    fail(f"device_ms: the host did not run ahead of a {sleep_s} s sleep")
+
+
+def kernel_ms(fn, reps):
+    """Device ms per call of fn() (device_ms's first number)."""
+    return device_ms(fn, reps)[0]
 
 
 def bound(nbytes, ops):
@@ -537,7 +599,7 @@ def kernels_vs_plain(inp, reps, plain_reps, fused_texels=None):
     out["aa_nearest"] = dict(
         rays=R, rects=n_ext, ids_equal=ids_eq, dist_equal=dist_eq,
         hit_share=(ptex >= 0).float().mean().item(), max_abs_err=err,
-        ms=cuda_ms(lambda: aa_query.aa_nearest(*args), reps),
+        ms=kernel_ms(lambda: aa_query.aa_nearest(*args), reps),
         plain_ms=cuda_ms(lambda: aa_query.aa_nearest_plain(*args),
                          plain_reps),
         **dict(zip(("bound_ms", "bound_by"), ray_bound(n_ext, R, 24 + 8))))
@@ -554,7 +616,8 @@ def kernels_vs_plain(inp, reps, plain_reps, fused_texels=None):
     out["nearest_distances"] = dict(
         rays=R, rects=n, equal_share=eq,
         max_abs_err=(got - want).abs().max().item(),
-        ms=cuda_ms(lambda: aa_query.nearest_distances(*args), reps),
+        ms=kernel_ms(lambda: aa_query.nearest_distances(*args),
+                      reps),
         plain_ms=cuda_ms(lambda: aa_query.nearest_distances_plain(*args),
                          plain_reps),
         **dict(zip(("bound_ms", "bound_by"), ray_bound(n, R, 24 + 4))))
@@ -580,7 +643,7 @@ def kernels_vs_plain(inp, reps, plain_reps, fused_texels=None):
         texels=T_all, compared_texels=T, directions=K, rects=n,
         max_rel_err=rel, equal_share=(a == want).float().mean().item(),
         max_abs_err=(a - want).abs().max().item(),
-        ms=cuda_ms(lambda: ao.ao_fused(*whole), reps),
+        ms=kernel_ms(lambda: ao.ao_fused(*whole), reps),
         ms_compared=cuda_ms(lambda: ao.ao_fused(*args), reps),
         plain_ms_compared=cuda_ms(lambda: ao.ao_fused_plain(*args),
                                   plain_reps),
@@ -971,48 +1034,58 @@ def stream_phases(dev, results, cfg, s, s5, s6):
             bit_identical_rerun=True,
             max_abs_err=(a[1] - want[1]).abs().max().item(),
             traced_bounces_per_photon=bounces / B,
-            ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3),
+            ms=kernel_ms(run, 20), plain_ms=cuda_ms(plain, 3),
             bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
         streams[name] = a
     idx, col = streams["trace_deposits_wide_rng"]
     T = s["total_c"]
     scale = sp.splat_color_scale(ph)
     total = sp.stream_bound(ph)
+    # each kernel against its exact function, bit for bit: the 7-bit
+    # plain version, and fused_splat_fixed_plain for row 16; the plain
+    # pair (fused_splat_fixed_plain against index_add_'s f32 order, the
+    # CPU's plain versions) within rtol 1e-5
     splats = {
         "fused_splat_i8": (
             lambda: sp.fused_splat_i8(idx, col, T, scale),
-            lambda: sp.fused_splat_i8_plain(idx, col, T, scale)),
+            lambda: sp.fused_splat_i8_plain(idx, col, T, scale), None),
         "fused_splat": (
             lambda: sp.fused_splat(idx, col, T, total),
+            lambda: sp.fused_splat_fixed_plain(idx, col, T, total),
             lambda: sp.fused_splat_plain(idx, col, T)),
         "fused_splat_f32": (
             lambda: sp.scatter_splat(idx, col, T, total),
+            lambda: sp.fused_splat_fixed_plain(idx, col, T, total, False),
             lambda: sp.scatter_plain(idx, col, T)),
     }
-    for name, (run, plain) in splats.items():
+    for name, (run, exact, plain) in splats.items():
         a, b = run(), run()
-        want = plain()
+        want = exact()
         sync()
         check(torch.equal(a, b), f"{name}: two runs differ")
         check(want.sum().item() > 0, f"{name}: plain splat is empty")
-        if name == "fused_splat_i8":
-            check(torch.equal(a, want), f"{name}: differs from plain")
-        else:
-            check(bool(((a - want).abs() <= 1e-5 * want.abs() + 1e-6)
-                       .all()), f"{name}: not within rtol 1e-5 of plain")
+        check(torch.equal(a, want), f"{name}: differs from its exact "
+              f"plain version")
+        pair = {}
+        if plain is not None:
+            ref = plain()
+            check(bool(((want - ref).abs() <= 1e-5 * ref.abs() + 1e-6)
+                       .all()), f"{name}: fused_splat_fixed_plain not "
+                  f"within rtol 1e-5 of index_add_")
+            pair = dict(plain_pair_max_abs_err=(want - ref).abs().max()
+                        .item())
         bnd = splat_bound(R, T, name)
         k18[name] = dict(
             rows=R, texels=T, equal_share=(a == want).float().mean().item(),
-            max_abs_err=(a - want).abs().max().item(),
-            max_rel_err=((a - want).abs() / want.abs().clamp(min=1e-30))
-            .max().item(), bit_identical_rerun=True,
-            ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 5),
+            max_abs_err=(a - want).abs().max().item(), **pair,
+            bit_identical_rerun=True,
+            ms=kernel_ms(run, 20), plain_ms=cuda_ms(exact, 5),
             bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
     # yardstick: one index_add_ of the same pre-rounded stream
     rounded = col.to(torch.bfloat16).to(torch.float32)
     idx64 = idx.to(torch.int64)
     buf = torch.zeros((T, 3), dtype=torch.float32, device=dev)
-    k18["fused_splat"]["library_ms"] = cuda_ms(
+    k18["fused_splat"]["library_ms"] = kernel_ms(
         lambda: buf.index_add_(0, idx64, rounded), 20)
     for name in KERNEL_SITES:
         if name in k18:
@@ -1157,12 +1230,12 @@ def stream_phases(dev, results, cfg, s, s5, s6):
     }
     for name, (run, plain) in splats6.items():
         bnd = splat_bound(R, T6, name)
-        k21[name] = dict(ms=cuda_ms(run, 10), plain_ms=cuda_ms(plain, 3),
+        k21[name] = dict(ms=kernel_ms(run, 10), plain_ms=cuda_ms(plain, 3),
                          bound_ms=bnd[0], bound_by=bnd[1])
     rounded6 = col6.to(torch.bfloat16).to(torch.float32)
     idx6_64 = idx6.to(torch.int64)
     buf6 = torch.zeros((T6, 3), dtype=torch.float32, device=dev)
-    k21["fused_splat"]["library_ms"] = cuda_ms(
+    k21["fused_splat"]["library_ms"] = kernel_ms(
         lambda: buf6.index_add_(0, idx6_64, rounded6), 10)
     scene6 = s6["scene"]
     batches6 = sum(-(-int(n) // B) for n in s6["em"].counts if n > 0)
@@ -1293,7 +1366,7 @@ def inkernel_phases(dev, results, cfg, s, s5, s6):
             cells=a.numel(), equal_share=(a == want).float().mean().item(),
             max_abs_err=err, bit_identical_rerun=True,
             traced_bounces_per_photon=bounces / B,
-            ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3),
+            ms=kernel_ms(run, 20), plain_ms=cuda_ms(plain, 3),
             bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
         results[name] = {k: k22[name][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1600,8 +1673,8 @@ def threefry_phases(dev, results, cfg, s, s6, make_layout):
           "threefry: radiosity's first chunk differs from its plain version")
     eq26["radiosity_chunk_0"] = dict(elements=got.numel(), equal_share=1.0)
     key0 = threefry.fold_in(threefry.prng_key(ph.seed), 0)
-    ms = cuda_ms(lambda: threefry.uniform(key0, (B, U), dev, True), 50)
-    ms_flat = cuda_ms(lambda: threefry.uniform(key0, (B, U), dev), 50)
+    ms = kernel_ms(lambda: threefry.uniform(key0, (B, U), dev, True), 50)
+    ms_flat = kernel_ms(lambda: threefry.uniform(key0, (B, U), dev), 50)
     plain_ms = cuda_ms(lambda: threefry.uniform_plain(key0, (B, U), dev), 5)
     bnd = threefry_bound(B * U)
     results["threefry_uniform"] = dict(
@@ -1667,7 +1740,7 @@ def threefry_phases(dev, results, cfg, s, s6, make_layout):
         k27[name] = dict(
             max_abs_err=err, bit_identical_rerun=True,
             traced_bounces_per_photon=bounces / B, **extra,
-            ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3),
+            ms=kernel_ms(run, 20), plain_ms=cuda_ms(plain, 3),
             bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
         results[name] = {k: k27[name][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1685,16 +1758,21 @@ def threefry_phases(dev, results, cfg, s, s6, make_layout):
                         (False, sp.scatter_plain)):
         a = sp.fused_splat(idx, col, T27, fit_bound, bf16=bf16)
         b = sp.fused_splat(idx, col, T27, fit_bound, bf16=bf16)
-        want = plain(idx, col, T27)
+        want = sp.fused_splat_fixed_plain(idx, col, T27, fit_bound, bf16)
+        ref = plain(idx, col, T27)
         sync()
         key = "bf16" if bf16 else "f32"
         check(torch.equal(a, b), f"fit stream splat ({key}): two runs differ")
         check(want.sum().item() > 0, f"fit stream splat ({key}): empty")
-        check(bool(((a - want).abs() <= 1e-5 * want.abs() + 1e-6).all()),
-              f"fit stream splat ({key}): not within rtol 1e-5 of plain")
+        check(torch.equal(a, want), f"fit stream splat ({key}): differs "
+              f"from fused_splat_fixed_plain")
+        check(bool(((want - ref).abs() <= 1e-5 * ref.abs() + 1e-6).all()),
+              f"fit stream splat ({key}): fused_splat_fixed_plain not "
+              f"within rtol 1e-5 of index_add_")
         err = (a - want).abs().max().item()
         fit_splat[key] = dict(max_abs_err=err, bit_identical_rerun=True,
-                              equal_share=(a == want).float().mean().item())
+                              plain_pair_max_abs_err=(want - ref).abs().max()
+                              .item())
         results["fused_splat"]["max_abs_err"] = max(
             results["fused_splat"]["max_abs_err"], err)
     # at albedo 0.9 and power 1: rows 7 and 6 are rows 5a, 5b and 4
@@ -1970,8 +2048,7 @@ def narrow_vs_plain(g, cfg, n_valid, reps=20, plain_reps=2):
         rects=n, batch=B, n_valid=n_valid, rows_equal=rows_eq,
         max_abs_err=float(np.abs(c - pc).max()), bit_identical_rerun=True,
         traced_bounces_per_photon=bounces / B,
-        ms=cuda_ms(lambda: pn.trace_deposits_narrow(*args),
-                   reps),
+        ms=kernel_ms(lambda: pn.trace_deposits_narrow(*args), reps),
         plain_ms=cuda_ms(lambda: pn.trace_deposits_narrow_plain(
             g["table"], g["ev"], g["u_t"].t(), n_valid, ph), plain_reps),
         bound_ms=bnd[0], bound_by=bnd[1])
@@ -2441,6 +2518,142 @@ def redesigned_trace_phase(dev, cfg, s, s6, make_layout):
         k36[scene] = dict(rects=n, batch=B, checked_batch=(
             8192 if scene == "13x13" else B), kernels=k)
     say("redesigned_trace", **k36)
+    return s13
+
+
+# --------------------------------------------------------------------------
+# the redesigned stream splat and the threefry draws (37)
+# --------------------------------------------------------------------------
+def splat_occupancy(T, regs, bf16):
+    """(accumulator instance, registers, shared bytes, blocks per SM) of
+    row 16's kernel on an arena of T texels: the instance and its shared
+    bytes as csrc/splat_stream.cu chooses them (ops/splat.splat_accumulator
+    asks it), 1024 threads a block."""
+    from flatmatch_tpu_torch.ops import splat as sp
+
+    inst, smem = sp.splat_accumulator(T)
+    sym = f"fused_splat_kernelILb{int(bf16)}ELi{int(inst == 'paged')}E"
+    found = [r for name, r in regs.items() if sym in name]
+    check(len(found) == 1, f"{sym}: {len(found)} kernels in the ptxas log")
+    r = found[0]
+    blocks = min(SM_REGISTERS // (-(-r // 8) * 8 * 1024),
+                 SM_SMEM // (smem + 1024), SM_THREADS // 1024)
+    return inst, r, smem, blocks
+
+
+def redesigned_splat_phase(dev, results, cfg, scenes):
+    """37. the redesigned stream splat (row 16, csrc/splat_stream.cu) and
+    the threefry kernel, on batch 0's 1M-row stream of each scene (mini:
+    the arena accumulator; the 4x4 tiling and mini tiled 13x13: the paged
+    one): fused_splat with bf16 and with f32 colors, and fused_splat_add
+    into a lightmap, each against fused_splat_fixed_plain bit for bit, the
+    device's scratch zero after every call; the threefry draws (the
+    scene's last photon batch flat and transposed to [U, B], radiosity's
+    first chunk of its first wall) against uniform_plain bit for bit; each
+    with its device ms and host µs per call (device_ms), the share of its
+    bound, its registers, shared bytes and blocks per SM, and the
+    accumulator instance that ran."""
+    import numpy as np
+    import torch
+
+    from flatmatch_tpu_torch.engines import photon_wide as pw
+    from flatmatch_tpu_torch.ops import splat as sp, threefry
+    from flatmatch_tpu_torch.scene.rectangle import num_tiles
+    from flatmatch_tpu_torch.utils import cuda_build
+
+    regs = ptxas_registers(cuda_build.build_info["log"])
+    ph = dataclasses.replace(cfg.photon, splat="fused")
+    B, D = ph.photons_per_batch, ph.max_depth
+    U = pw.uniforms_per_photon(D)
+    rad = cfg.radiosity
+    total = sp.stream_bound(ph)
+    k37 = {}
+    for scene, st in scenes.items():
+        f, gc = st["aa_c"].fields, st["aa_c"].group_counts
+        T = st["total_c"]
+        idx, col = pw.trace_deposits_wide_rng(f, gc, st["ev"], st["seed"],
+                                              B, B, ph, pw.stream_block(B))
+        R = idx.shape[0]
+        lm0 = torch.from_numpy(np.random.RandomState(37).rand(T, 3).astype(
+            np.float32)).to(dev)
+        lm = lm0.clone()
+        calls = {
+            "fused_splat": (
+                lambda: sp.fused_splat(idx, col, T, total),
+                lambda: sp.fused_splat_fixed_plain(idx, col, T, total), True),
+            "fused_splat_f32": (
+                lambda: sp.scatter_splat(idx, col, T, total),
+                lambda: sp.fused_splat_fixed_plain(idx, col, T, total, False),
+                False),
+            "fused_splat_add": (
+                lambda: sp.fused_splat_add(lm, idx, col, total),
+                lambda: lm0 + sp.fused_splat_fixed_plain(idx, col, T, total),
+                True),
+        }
+        k = {}
+        for name, (run, exact, bf16) in calls.items():
+            got = run().clone()
+            want = exact()
+            sync()
+            check(want.sum().item() > 0, f"{scene} {name}: plain is empty")
+            check(torch.equal(got, want), f"{scene} {name}: differs from "
+                  f"fused_splat_fixed_plain")
+            scratch = sp._fixed_scratch[sp._scratch_key(dev)]
+            check(not bool(scratch.any()),
+                  f"{scene} {name}: the scratch was not left zeroed")
+            ms, host_us = device_ms(run, 50)
+            bnd = splat_bound(R, T, "fused_splat")
+            inst, r, smem, blocks = splat_occupancy(T, regs, bf16)
+            k[name] = dict(equal_to_fixed_plain=True, ms=ms,
+                           host_us=host_us, bound_ms=bnd[0],
+                           bound_by=bnd[1], share_of_bound=bnd[0] / ms,
+                           accumulator=inst, registers=r, shared_bytes=smem,
+                           blocks_per_sm=blocks)
+        last = sum(-(-int(n) // B) for n in st["em"].counts if n > 0) - 1
+        key = threefry.fold_in(threefry.prng_key(ph.seed), last)
+        chunk = min(int(rad.texels_per_chunk),
+                    num_tiles(st["scene"].walls[0]))
+        rkey = threefry.fold_in(threefry.fold_in(
+            threefry.prng_key(rad.seed), 0), 0)
+        rshape = (chunk, int(rad.rays_per_texel), 2)
+        draws = {
+            "threefry_flat": (lambda: threefry.uniform(key, (B, U), dev),
+                              lambda: threefry.uniform_plain(key, (B, U),
+                                                             dev),
+                              "uniform_kernel"),
+            "threefry_t": (lambda: threefry.uniform(key, (B, U), dev, True),
+                           lambda: threefry.uniform_plain(key, (B, U),
+                                                          dev).t(),
+                           "uniform_t_kernel"),
+            "threefry_radiosity": (
+                lambda: threefry.uniform(rkey, rshape, dev),
+                lambda: threefry.uniform_plain(rkey, rshape, dev),
+                "uniform_kernel"),
+        }
+        for name, (run, exact, sym) in draws.items():
+            got = run()
+            want = exact()
+            sync()
+            check(torch.equal(got, want), f"{scene} {name}: differs from "
+                  f"uniform_plain")
+            ms, host_us = device_ms(run, 50)
+            bnd = threefry_bound(got.numel())
+            found = [r for n_, r in regs.items()
+                     if f"{len(sym)}{sym}E" in n_]
+            check(len(found) == 1, f"{sym}: {len(found)} kernels in the "
+                  f"ptxas log")
+            r = found[0]
+            k[name] = dict(equal_to_plain=True, elements=got.numel(), ms=ms,
+                           host_us=host_us, bound_ms=bnd[0],
+                           bound_by=bnd[1], share_of_bound=bnd[0] / ms,
+                           registers=r, shared_bytes=0, blocks_per_sm=min(
+                               SM_REGISTERS // (-(-r // 8) * 8 * 256),
+                               SM_THREADS // 256))
+        k37[scene] = dict(rows=R, texels=T, kernels=k)
+    mini = k37["mini"]["kernels"]
+    results["fused_splat"].update(ms=mini["fused_splat"]["ms"])
+    results["threefry_uniform"].update(ms=mini["threefry_t"]["ms"])
+    say("redesigned_splat", **k37)
 
 
 def main():
@@ -2497,7 +2710,7 @@ def main():
           f"energy {e_got} vs plain {e_want}")
     check(eq_share >= 0.999, f"only {eq_share:.6f} of cells equal")
     acc = torch.empty_like(got)
-    ms = cuda_ms(lambda: kernel_batch(s, cfg, B, out=acc), 20)
+    ms = kernel_ms(lambda: kernel_batch(s, cfg, B, out=acc), 20)
     plain_ms = cuda_ms(lambda: plain_batch(s, cfg, B), 3)
     bounces = traced_bounces(s, cfg, B)
     n_rects = s["aa_c"].fields.shape[1]
@@ -2625,7 +2838,7 @@ def main():
     torch.cuda.synchronize()
     check(torch.equal(prod7, diff_def),
           "diff forward at the default parameters differs from production")
-    ms7 = cuda_ms(lambda: diff_batch(s, d7, cfg, B, out=acc), 20)
+    ms7 = kernel_ms(lambda: diff_batch(s, d7, cfg, B, out=acc), 20)
     plain_ms7 = cuda_ms(lambda: diff_plain(s, d7, cfg, B), 3)
     b7 = trace_bound(s, bounces, B, "trace_splat_wide_diff_rng_i8")
     results["trace_splat_wide_diff_rng_i8"] = dict(
@@ -2653,7 +2866,7 @@ def main():
                 <= 1e-4 * want_da.abs() + 1e-6 * da_max).all()),
           f"fold da differs from the plain fold (max abs err {err8})")
     check(rel_w <= 1e-4, f"fold w_sum relative error {rel_w}")
-    ms8 = cuda_ms(lambda: fold_batch(s, d7, cfg, B), 20)
+    ms8 = kernel_ms(lambda: fold_batch(s, d7, cfg, B), 20)
     plain_ms8 = cuda_ms(lambda: fold_plain(s, d7, cfg, B), 3)
     b8 = trace_bound(s, bounces, B, "trace_fold_wide_rng")
     results["trace_fold_wide_rng"] = dict(
@@ -2776,7 +2989,9 @@ def main():
     inkernel_phases(dev, results, cfg, s, dict(s5, cfg=cfg5), s6)
     threefry_phases(dev, results, cfg, s, s6, make_layout)
     general_phases(dev, results, make_layout)
-    redesigned_trace_phase(dev, cfg, s, s6, make_layout)
+    s13 = redesigned_trace_phase(dev, cfg, s, s6, make_layout)
+    redesigned_splat_phase(dev, results, cfg, {"mini": s, "4x4": s6,
+                                               "13x13": s13})
 
     print(json.dumps({"kernels": [dict(KERNELS[k], **results[k])
                                   for k in KERNELS]}))

@@ -20,35 +20,72 @@
 // and a [rows, cols] draw written transposed as [cols, rows], so that
 // out[c * rows + p] = u[p * cols + c]: the [U, B] layout that the
 // uniforms-in trace kernels read (UniformDraw, trace_wide.cuh), which then
-// need no transposed copy. Each thread computes whole elements: uint32
-// arithmetic, the rotations as funnel shifts, the element index in 64 bits
-// so that its high word is right past 2^32 elements.
+// need no transposed copy.
 //
-// What bounds it on an H100: integer operations, about 80 per element (20
-// rounds of add, rotate and xor, the injections, the conversion) against
-// 4 bytes written per element.
+// What bounds it on an H100: integer operations, 71 an element as the
+// compiler emits the function (one add for the counter, 20 rounds of add,
+// funnel-shift rotate and xor, the x1 key injections, the last x0
+// injection, the xor of the two words, the shift and the conversion; the
+// other x0 injections fold into the next round's three-input add), against
+// 4 bytes written. The rotates and xors (40 an element) run only on the
+// ALU pipe, half the SM's issue rate, so a kernel that spends nothing
+// else there still takes 40/64 of a cycle per element and SM lane.
+// What the design does about the rest:
+//   - the transposed draw gives each thread one photon p (neighbouring
+//     threads, neighbouring p: the stores coalesce) and a run of its
+//     columns; the counter p * cols + c is formed once and stepped, in 32
+//     bits (the wrapper keeps rows * cols under 2^31, so its high word is
+//     0): no 64-bit division per element;
+//   - the flat draw indexes in 32 bits, the counter's high word fixed per
+//     launch: the entry point cuts a draw past 2^31 elements into launches
+//     of 2^31, whose low words then never wrap;
+//   - the float is bitcast((bits >> 9) | 0x3f800000) - 1, exactly
+//     (bits >> 9) * 2^-23 (both in [1, 2) before the subtraction, which is
+//     exact), with no integer-to-float conversion;
+//   - the key schedule is formed once per thread, and the grids are whole
+//     waves of 8 blocks of 256 threads a SM (2,048 threads): one for the
+//     transposed draw, its columns split over y to fill it, four for the
+//     flat draw's grid-stride loop (one wave was 1% slower there).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false (see
 // flatmatch_tpu_torch/utils/cuda_build.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm_count.cuh"
+
 namespace {
 
 constexpr int kTfThreads = 256;
-constexpr int kTfMaxBlocks = 4096;
+constexpr int kTfBlocksPerSm = 8;
+constexpr int kTfFlatWaves = 4;
+constexpr long long kTfChunk = 1LL << 31;   // elements of one flat launch
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return __funnelshift_l(x, x, r);
 }
 
-// One threefry2x32 block: (x0, x1) <- threefry2x32((k0, k1), (x0, x1)).
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
+// The key schedule of threefry2x32: the words added after each group of
+// four rounds, the round number folded into x1's.
+struct Keys {
+  uint32_t k0, k1, inj0[5], inj1[5];
+
+  __device__ __forceinline__ Keys(uint32_t a, uint32_t b) : k0(a), k1(b) {
+    const uint32_t ks[3] = {a, b, a ^ b ^ 0x1BD11BDAu};
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      inj0[i] = ks[(i + 1) % 3];
+      inj1[i] = ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+    }
+  }
+};
+
+// element (hi, lo) of the draw of `k`, as a float in [0, 1)
+__device__ __forceinline__ float uniform_at(const Keys& k, uint32_t hi,
+                                            uint32_t lo) {
   constexpr int kRot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  x0 += ks[0];
-  x1 += ks[1];
+  uint32_t x0 = hi + k.k0;
+  uint32_t x1 = lo + k.k1;
 #pragma unroll
   for (int i = 0; i < 5; ++i) {
 #pragma unroll
@@ -56,51 +93,47 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
       x0 += x1;
       x1 = rotl(x1, kRot[i % 2][j]) ^ x0;
     }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+    x0 += k.inj0[i];
+    x1 += k.inj1[i];
+  }
+  return __uint_as_float(((x0 ^ x1) >> 9) | 0x3f800000u) - 1.0f;
+}
+
+// out[j] = element (hi, lo0 + j) of the draw, j < m <= 2^31 (lo0 is 0 or
+// 2^31, so lo0 + j does not wrap)
+__global__ void __launch_bounds__(kTfThreads)
+uniform_kernel(uint32_t k0, uint32_t k1, uint32_t hi, uint32_t lo0,
+               uint32_t m, float* __restrict__ out) {
+  const Keys k(k0, k1);
+  const uint32_t stride = gridDim.x * kTfThreads;
+  for (uint32_t j = blockIdx.x * kTfThreads + threadIdx.x; j < m;
+       j += stride) {
+    out[j] = uniform_at(k, hi, lo0 + j);
   }
 }
 
-// element i of the draw of (k0, k1), as a float in [0, 1)
-__device__ __forceinline__ float uniform_at(uint32_t k0, uint32_t k1,
-                                            unsigned long long i) {
-  uint32_t x0 = static_cast<uint32_t>(i >> 32);
-  uint32_t x1 = static_cast<uint32_t>(i);
-  threefry2x32(k0, k1, x0, x1);
-  return __uint2float_rn((x0 ^ x1) >> 9) * (1.0f / 8388608.0f);
-}
-
+// out [cols, rows]: out[c * rows + p] = u[p * cols + c], rows * cols <
+// 2^31. Thread (p, blockIdx.y) writes photon p's columns [c0, c1).
 __global__ void __launch_bounds__(kTfThreads)
-uniform_kernel(uint32_t k0, uint32_t k1, long long n,
-               float* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    out[i] = uniform_at(k0, k1, static_cast<unsigned long long>(i));
-  }
-}
-
-// out [cols, rows]: out[c * rows + p] = u[p * cols + c]; neighbouring
-// threads write neighbouring p
-__global__ void __launch_bounds__(kTfThreads)
-uniform_t_kernel(uint32_t k0, uint32_t k1, int rows, int cols,
+uniform_t_kernel(uint32_t k0, uint32_t k1, int rows, int cols, int per,
                  float* __restrict__ out) {
-  const long long n = static_cast<long long>(rows) * cols;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long o = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       o < n; o += stride) {
-    const long long c = o / rows;
-    const long long p = o - c * rows;
-    out[o] = uniform_at(k0, k1,
-                        static_cast<unsigned long long>(p * cols + c));
+  const Keys k(k0, k1);
+  const int c0 = blockIdx.y * per;
+  const int c1 = min(cols, c0 + per);
+  for (int p = blockIdx.x * kTfThreads + threadIdx.x; p < rows;
+       p += gridDim.x * kTfThreads) {
+    const uint32_t ctr = static_cast<uint32_t>(p) * cols;
+    float* o = out + static_cast<size_t>(c0) * rows + p;
+    for (int c = c0; c < c1; ++c, o += rows) {
+      *o = uniform_at(k, 0u, ctr + static_cast<uint32_t>(c));
+    }
   }
 }
 
-int blocks_of(long long n) {
-  const long long want = (n + kTfThreads - 1) / kTfThreads;
-  return static_cast<int>(want < kTfMaxBlocks ? want : kTfMaxBlocks);
+// blocks of one wave on this device, or -1 on a CUDA error
+int wave_blocks() {
+  const int sms = sm_count();
+  return sms > 0 ? sms * kTfBlocksPerSm : -1;
 }
 
 }  // namespace
@@ -112,18 +145,43 @@ int blocks_of(long long n) {
 extern "C" int fm_threefry_uniform(uint32_t k0, uint32_t k1, long long n,
                                    float* out, void* stream) {
   if (n <= 0) return 0;
-  uniform_kernel<<<blocks_of(n), kTfThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(k0, k1, n, out);
-  return static_cast<int>(cudaGetLastError());
+  const int wave = wave_blocks();
+  if (wave <= 0) return sm_count_error();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (long long start = 0; start < n; start += kTfChunk) {
+    const long long m = n - start < kTfChunk ? n - start : kTfChunk;
+    const long long want = (m + kTfThreads - 1) / kTfThreads;
+    const long long most = static_cast<long long>(kTfFlatWaves) * wave;
+    const int blocks = static_cast<int>(want < most ? want : most);
+    uniform_kernel<<<blocks, kTfThreads, 0, s>>>(
+        k0, k1, static_cast<uint32_t>(start >> 32),
+        static_cast<uint32_t>(start), static_cast<uint32_t>(m), out + start);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 // out [cols, rows] f32: the [rows, cols] draw of key (k0, k1), transposed.
 extern "C" int fm_threefry_uniform_t(uint32_t k0, uint32_t k1, int rows,
                                      int cols, float* out, void* stream) {
-  const long long n = static_cast<long long>(rows) * cols;
   if (rows <= 0 || cols <= 0) return 0;
-  uniform_t_kernel<<<blocks_of(n), kTfThreads, 0,
+  if (static_cast<long long>(rows) * cols >= kTfChunk) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int wave = wave_blocks();
+  if (wave <= 0) return sm_count_error();
+  // photons across x, whole waves; the columns split over y into as many
+  // runs as fill the rest of a wave
+  const int bx = (rows + kTfThreads - 1) / kTfThreads < wave
+                     ? (rows + kTfThreads - 1) / kTfThreads
+                     : wave;
+  int groups = wave / bx;
+  groups = groups < 1 ? 1 : (groups > cols ? cols : groups);
+  const int per = (cols + groups - 1) / groups;
+  groups = (cols + per - 1) / per;
+  uniform_t_kernel<<<dim3(bx, groups), kTfThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(k0, k1, rows, cols,
-                                                          out);
+                                                          per, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -207,13 +207,23 @@ __device__ __forceinline__ void splat_i8(int* acc, const Params& P,
 // by the wrapper (ops/splat.fixed_point_scale) so that no sum passes 2^62.
 // Integer addition does not depend on order, so two runs give the same bits.
 // With kBf16 the color is first rounded to bf16 once (round to nearest even,
-// as astype(bfloat16)); zeros are skipped.
+// as astype(bfloat16)); zeros are skipped. to_fixed is the one step from a
+// color to its integer, which the in-kernel splat (splat_f32) and the stream
+// splat (splat_stream.cu) share, so both add the same integer for a deposit:
+// it sets *v and returns true unless the (rounded) color is zero.
+template <bool kBf16>
+__device__ __forceinline__ bool to_fixed(float c, float scale, long long* v) {
+  if (kBf16) c = __bfloat162float(__float2bfloat16_rn(c));
+  if (c == 0.0f) return false;
+  *v = __float2ll_rn(c * scale);
+  return true;
+}
+
 template <bool kBf16>
 __device__ __forceinline__ void add_fixed(unsigned long long* a, float c,
-                                          float to_fixed) {
-  if (kBf16) c = __bfloat162float(__float2bfloat16_rn(c));
-  if (c != 0.0f) {
-    const long long v = __float2ll_rn(c * to_fixed);
+                                          float scale) {
+  long long v;
+  if (to_fixed<kBf16>(c, scale, &v)) {
     atomicAdd(a, static_cast<unsigned long long>(v));
   }
 }

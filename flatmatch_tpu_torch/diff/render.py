@@ -39,7 +39,7 @@ from ..engines import photon_wide as pw
 from ..ops import rng, threefry
 from ..ops.aa_scene import AARects
 from ..ops.device_scene import Emitters
-from ..ops.splat import fixed_point_scale, fused_splat, stream_bound
+from ..ops.splat import fixed_point_scale, fused_splat_add, stream_bound
 
 IN_KERNEL_TIERS = ("inkernel", "inkernel_i8", "fused", "fused_i8")
 STREAM_TIERS = ("scatter", "bucket", "bucket_exact")
@@ -101,7 +101,7 @@ def fixed_pair(cfg: PhotonConfig, power_e: torch.Tensor,
 def stream_total_bound(cfg: PhotonConfig, power_e: torch.Tensor,
                        albedo_aa: torch.Tensor, batch_size: int) -> float:
     """The stream tier's splat bound of one emitter, a host float for
-    `fused_splat`: the stream bound of `batch_size`-photon batches times
+    `fused_splat_add`: the stream bound of `batch_size`-photon batches times
     `grid_corr`, read from the parameters' device once. Its fixed-point
     scale is `fixed_pair`'s (the product is taken in float64 both ways)."""
     bound = stream_bound(dataclasses.replace(cfg,
@@ -257,8 +257,7 @@ class WideDiffRenderer:
             ev, g = grids[e]
             if self.stream:
                 idx, col, _ = self.trace_stream(albedo_aa, ev, gb, nv, bsz)
-                lm += fused_splat(idx, col, self.total_c, g,
-                                  bf16=cfg.splat == "bucket")
+                fused_splat_add(lm, idx, col, g, bf16=cfg.splat == "bucket")
             elif self.device_rng:
                 seed = rng.batch_seed(cfg.seed, gb)
                 if self.i8:

@@ -14,10 +14,10 @@ albedo; the deposit is the attenuated color.
 The JAX engine has no Pallas kernel: XLA fuses its [B, N] work. Here each
 batch runs in tiles of photons (`ops/intersect.rays_per_tile`), so that no
 [B, N] tensor passes 128 MB, and writes a deposit stream that
-`ops/splat.scatter_splat` sums: on the card the int64 fixed-point f32 splat
-(`csrc/splat_stream.cu`), exact and the same bits run to run, where the
-JAX engine adds each bounce with an f32 scatter-add; on the CPU its plain
-version, `index_add_` in f32. The draws are the JAX engine's threefry
+`ops/splat.fused_splat_add` adds into the lightmap with f32 colors: on the
+card the int64 fixed-point f32 splat (`csrc/splat_stream.cu`), exact and
+the same bits run to run, where the JAX engine adds each bounce with an
+f32 scatter-add; on the CPU its plain version, `index_add_` in f32. The draws are the JAX engine's threefry
 uniforms (`ops/threefry`, `csrc/threefry.cu` on the card).
 """
 from __future__ import annotations
@@ -32,7 +32,7 @@ from ..ops.device_scene import Emitters, Rects
 from ..ops.intersect import nearest_hit, rays_per_tile
 from ..ops.linalg import dot3
 from ..ops.sampling import TWO_PI_REF, build_base
-from ..ops.splat import scatter_splat, stream_bound
+from ..ops.splat import fused_splat_add, stream_bound
 from ..ops.tile import texel_index
 
 
@@ -147,7 +147,7 @@ def trace_deposits(rects: Rects, em: EmitterSlice, uniforms: torch.Tensor,
 
 def splat_bound(cfg: PhotonConfig, batch: int, power=None) -> float:
     """A bound on a batch's summed deposit colors, which sets the
-    fixed-point scale of `scatter_splat` (ops/splat.stream_bound at this
+    fixed-point scale of the f32 splat (ops/splat.stream_bound at this
     batch, times the largest power above 1)."""
     bound = stream_bound(cfg) * max(1.0, batch / cfg.photons_per_batch)
     if power is not None:
@@ -163,9 +163,8 @@ def trace_batch(lightmap: torch.Tensor, rects: Rects, em: EmitterSlice,
     (the JAX engine returns a new array); returns it."""
     idx, col = trace_deposits(rects, em, uniforms, n_valid, cfg, albedo,
                               power)
-    lightmap += scatter_splat(idx.reshape(-1), col.reshape(-1, 3),
-                              lightmap.shape[0],
-                              splat_bound(cfg, uniforms.shape[0], power))
+    fused_splat_add(lightmap, idx.reshape(-1), col.reshape(-1, 3),
+                    splat_bound(cfg, uniforms.shape[0], power), bf16=False)
     return lightmap
 
 

@@ -15,8 +15,9 @@ photon_wide.py). `render.run_engine` sends `photon_pallas` here when
   failed build or launch raises. CPU tensors run the plain version,
   `trace_deposits_narrow_plain`, which computes what the TPU kernel's
   _make_kernel does on [photons, N] tiles, line for line.
-- `trace_batch_narrow`: the trace, then `ops/splat.scatter_splat`, the
-  int64 fixed-point f32 splat (exact, where the JAX package adds in f32).
+- `trace_batch_narrow`: the trace, then `ops/splat.fused_splat_add` with
+  f32 colors, the int64 fixed-point f32 splat adding into the lightmap
+  (exact, where the JAX package adds in f32).
 - `render_photons`: the shared schedule (engines/schedule.py), each batch
   drawing its threefry uniforms in the kernel's [U, B] layout.
 """
@@ -33,7 +34,7 @@ from ..ops.aa_query import MISS, check_on
 from ..ops.device_scene import Emitters, Rects, rect_count
 from ..ops.intersect import rays_per_tile
 from ..ops.sampling import TWO_PI_REF
-from ..ops.splat import scatter_splat
+from ..ops.splat import fused_splat_add
 from ..utils.cuda_build import launch
 from . import photon_wide as pw
 from .photon import splat_bound
@@ -190,13 +191,12 @@ def trace_batch_narrow(lightmap: torch.Tensor, scene: torch.Tensor,
                        em_vec: torch.Tensor, uniforms: torch.Tensor,
                        n_valid: int, cfg: PhotonConfig) -> torch.Tensor:
     """Trace one batch ([U, B] uniforms) and add its deposits into
-    `lightmap` [T, 3] in place through `scatter_splat`
+    `lightmap` [T, 3] in place through `fused_splat_add`
     (photon_pallas.trace_batch_pallas, which adds in f32; the int64
     fixed-point sum here is exact); returns it."""
     idx, col = trace_deposits_narrow(scene, em_vec, uniforms, n_valid, cfg)
-    lightmap += scatter_splat(idx.reshape(-1), col.reshape(-1, 3),
-                              lightmap.shape[0],
-                              splat_bound(cfg, idx.shape[0]))
+    fused_splat_add(lightmap, idx.reshape(-1), col.reshape(-1, 3),
+                    splat_bound(cfg, idx.shape[0]), bf16=False)
     return lightmap
 
 

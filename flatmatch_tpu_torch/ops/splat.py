@@ -11,9 +11,14 @@ tensors and run the plain versions for CPU tensors only:
   once; equal to the JAX package's bit for bit.
 - `fused_splat`: colors rounded to bf16 once, summed in f32. The kernel sums
   64-bit fixed-point integers (see the source note), so two runs give the
-  same bits; the plain version sums in `index_add_`'s f32 order.
+  same bits; the plain version sums in `index_add_`'s f32 order, and
+  `fused_splat_fixed_plain` is the kernel's exact function in torch (the
+  card's result equals it bit for bit).
 - `scatter_splat`: the same kernel on the f32 colors (`scatter`,
   `bucket_exact`).
+- `fused_splat_add`: the same kernel adding its sum into a lightmap in the
+  pass that converts it (what `splat_stream`, the diff renderer's stream
+  tier and the general engines call): `lm += fused_splat(...)` bit for bit.
 
 The TPU's MXU pass depth K (photon_pallas_wide.py:1553) only groups its f32
 sums and has no counterpart here.
@@ -113,6 +118,71 @@ def fused_splat_plain(idx, col, num_texels: int):
                          num_texels)
 
 
+def fixed_point_sums(idx, col, num_texels: int, to_fixed: float,
+                     bf16: bool = True) -> torch.Tensor:
+    """The integer stage of the f32 stream splat's kernel (to_fixed in
+    csrc/trace_wide.cuh): each color, rounded to bf16 first with `bf16`,
+    becomes round(c * to_fixed) to nearest even as an int64 (the f32
+    product is exact: to_fixed is a power of two), and the integers are
+    summed per texel and channel into int64 [T, 3], wrapping as the card's
+    int64 sums wrap. Ids outside [0, T) are dropped; zeros add nothing."""
+    c = col.to(torch.bfloat16).to(torch.float32) if bf16 else col
+    v = torch.round(c.to(torch.float64) * float(to_fixed)).to(torch.int64)
+    keep = _in_range(idx, num_texels)
+    acc = torch.zeros((int(num_texels), 3), dtype=torch.int64,
+                      device=idx.device)
+    return acc.index_add_(0, idx[keep].to(torch.int64), v[keep])
+
+
+def fused_splat_fixed_plain(idx, col, num_texels: int, total_bound: float,
+                            bf16: bool = True) -> torch.Tensor:
+    """The f32 stream splat's exact function (`fused_splat` on the card,
+    either instance, bit for bit): `fixed_point_sums` at the scale 2^k of
+    `fixed_point_scale(total_bound)`, each sum converted to f32 once
+    (round to nearest even) and times 2^-k."""
+    to_fixed, from_fixed = fixed_point_scale(total_bound)
+    acc = fixed_point_sums(idx, col, num_texels, to_fixed, bf16)
+    return acc.to(torch.float32) * float(np.float32(from_fixed))
+
+
+def splat_accumulator(num_texels: int):
+    """(instance, shared bytes) of the f32 stream splat's kernel for an
+    arena of num_texels texels, as csrc/splat_stream.cu chooses them
+    (fm_fused_splat_plan): "arena" when the int64 [T, 3] sums fit in a
+    block's shared memory, else "paged". It asks the kernel library, so it
+    needs the CUDA build."""
+    import ctypes
+
+    from ..utils.cuda_build import load_library
+
+    inst, smem = ctypes.c_int(), ctypes.c_int()
+    load_library().fm_fused_splat_plan(int(num_texels), ctypes.byref(inst),
+                                       ctypes.byref(smem))
+    return ("arena", "paged")[inst.value], smem.value
+
+
+# One zeroed int64 scratch per device and stream for the f32 stream splat,
+# kept across calls as a cache of device memory: the kernel needs it zero
+# on entry and every launch of fm_fused_splat(_add) leaves it zero, so no
+# call clears it. Calls on one stream run in order; calls on two streams of
+# a device may run at once, so each stream has its own.
+_fixed_scratch = {}
+
+
+def _scratch_key(dev):
+    """The scratch of PyTorch's current stream on CUDA device `dev`."""
+    return dev, torch.cuda.current_stream(dev).cuda_stream
+
+
+def _scratch(dev, n: int) -> torch.Tensor:
+    key = _scratch_key(dev)
+    buf = _fixed_scratch.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int64, device=dev)
+        _fixed_scratch[key] = buf
+    return buf
+
+
 def _check_stream(idx, col, num_texels) -> int:
     """The stream must be contiguous int32 [R] and f32 [R, 3] on one CPU or
     CUDA device. Returns R."""
@@ -159,6 +229,23 @@ def fused_splat_i8(idx: torch.Tensor, col: torch.Tensor, num_texels: int,
 fused_splat_i8.launches = 0
 
 
+def _launch_fixed(entry, out, idx, col, R, num_texels, total_bound, bf16):
+    """Launch the f32 stream splat's entry point `entry` on the zeroed
+    scratch of the device's current stream; on a failed launch the scratch
+    is dropped (a later call makes a zeroed one) and the error raised."""
+    to_fixed, from_fixed = fixed_point_scale(total_bound)
+    dev = idx.device
+    acc = _scratch(dev, 3 * int(num_texels))
+    try:
+        launch(entry, dev, idx.data_ptr(), col.data_ptr(), acc.data_ptr(),
+               out.data_ptr(), R, int(num_texels), int(bf16),
+               np.float32(to_fixed), np.float32(from_fixed))
+    except RuntimeError:
+        _fixed_scratch.pop(_scratch_key(dev), None)
+        raise
+    fused_splat.launches += 1
+
+
 def fused_splat(idx: torch.Tensor, col: torch.Tensor, num_texels: int,
                 total_bound: float, bf16: bool = True) -> torch.Tensor:
     """[num_texels, 3] f32 sum of the stream, colors rounded to bf16 first
@@ -166,21 +253,19 @@ def fused_splat(idx: torch.Tensor, col: torch.Tensor, num_texels: int,
     stream (`stream_bound`); it sets the fixed-point scale.
 
     CUDA tensors launch `csrc/splat_stream.cu` (the port of
-    splat_pallas.fused_splat, deterministic: no float atomics); a failed
-    launch raises. CPU tensors run the plain versions."""
+    splat_pallas.fused_splat, deterministic: no float atomics; equal to
+    `fused_splat_fixed_plain` bit for bit); a failed launch raises. CPU
+    tensors run the plain versions."""
     R = _check_stream(idx, col, num_texels)
-    to_fixed, from_fixed = fixed_point_scale(total_bound)
     if idx.device.type == "cpu":
+        fixed_point_scale(total_bound)   # refuses a bound with no scale
         if bf16:
             return fused_splat_plain(idx, col, num_texels)
         return scatter_plain(idx, col, num_texels)
-    dev = idx.device
-    acc = torch.empty((int(num_texels), 3), dtype=torch.int64, device=dev)
-    out = torch.empty((int(num_texels), 3), dtype=torch.float32, device=dev)
-    launch("fm_fused_splat", dev, idx.data_ptr(), col.data_ptr(),
-           acc.data_ptr(), out.data_ptr(), R, int(num_texels), int(bf16),
-           np.float32(to_fixed), np.float32(from_fixed))
-    fused_splat.launches += 1
+    out = torch.empty((int(num_texels), 3), dtype=torch.float32,
+                      device=idx.device)
+    _launch_fixed("fm_fused_splat", out, idx, col, R, num_texels,
+                  total_bound, bf16)
     return out
 
 
@@ -194,6 +279,29 @@ def scatter_splat(idx: torch.Tensor, col: torch.Tensor, num_texels: int,
     return fused_splat(idx, col, num_texels, total_bound, bf16=False)
 
 
+def fused_splat_add(lm: torch.Tensor, idx: torch.Tensor, col: torch.Tensor,
+                    total_bound: float, bf16: bool = True) -> torch.Tensor:
+    """Add the stream's `fused_splat` sum into the f32 lightmap `lm`
+    [T, 3] in place, bit for bit `lm += fused_splat(idx, col, T,
+    total_bound, bf16)`; returns `lm`.
+
+    CUDA tensors launch the same kernel as `fused_splat` (its launches
+    count there), whose finishing pass adds f32(sum) * 2^-k into `lm`; a
+    failed launch raises. CPU tensors add the plain version's sum."""
+    R = _check_stream(idx, col, lm.shape[0])
+    if (lm.dim() != 2 or lm.shape[1] != 3 or lm.dtype != torch.float32
+            or not lm.is_contiguous() or lm.device != idx.device):
+        raise ValueError(f"lm must be contiguous float32 [T, 3] on "
+                         f"{idx.device}, got {lm.dtype} "
+                         f"{tuple(lm.shape)} on {lm.device}")
+    if idx.device.type == "cpu":
+        lm += fused_splat(idx, col, lm.shape[0], total_bound, bf16)
+        return lm
+    _launch_fixed("fm_fused_splat_add", lm, idx, col, R, lm.shape[0],
+                  total_bound, bf16)
+    return lm
+
+
 def splat_stream(lm: torch.Tensor, idx: torch.Tensor, col: torch.Tensor,
                  cfg: PhotonConfig) -> torch.Tensor:
     """Add one batch's stream into the f32 lightmap `lm` [T, 3] in place,
@@ -201,13 +309,11 @@ def splat_stream(lm: torch.Tensor, idx: torch.Tensor, col: torch.Tensor,
     fused and bucket with bf16 colors, scatter and bucket_exact with f32
     colors. Returns `lm`."""
     mode = cfg.splat
-    T = lm.shape[0]
     if mode == "fused_i8":
-        inc = fused_splat_i8(idx, col, T, splat_color_scale(cfg))
+        lm += fused_splat_i8(idx, col, lm.shape[0], splat_color_scale(cfg))
     elif mode in BF16_MODES + F32_MODES:
-        inc = fused_splat(idx, col, T, stream_bound(cfg),
-                          bf16=mode in BF16_MODES)
+        fused_splat_add(lm, idx, col, stream_bound(cfg),
+                        bf16=mode in BF16_MODES)
     else:
         raise ValueError(f"unknown splat mode {cfg.splat!r}")
-    lm += inc
     return lm

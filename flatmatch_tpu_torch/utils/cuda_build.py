@@ -36,7 +36,8 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # C entry points: their argument types (pointers, ints, floats; the threefry
 # keys as uint32 and its element count as int64); each ends with the stream
-# pointer and returns the CUDA error code
+# pointer and returns the CUDA error code, but for fm_fused_splat_plan, a
+# query that launches nothing and takes no stream
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U32, _I64 = ctypes.c_uint32, ctypes.c_longlong
 ENTRY_POINTS = {
@@ -58,6 +59,8 @@ ENTRY_POINTS = {
     "fm_trace_deposits_wide_diff": [_P] * 7 + [_I] * 10 + [_F] * 9 + [_P],
     "fm_fused_splat_i8": [_P] * 4 + [_I] * 2 + [_F] * 2 + [_P],
     "fm_fused_splat": [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P],
+    "fm_fused_splat_add": [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P],
+    "fm_fused_splat_plan": [_I, _P, _P],
     "fm_trace_deposits_narrow": [_P] * 5 + [_I] * 4 + [_F] * 9 + [_P],
     "fm_threefry_uniform": [_U32, _U32, _I64, _P, _P],
     "fm_threefry_uniform_t": [_U32, _U32, _I, _I, _P, _P],

@@ -471,7 +471,9 @@ def _stream_of(name, dev, batch=1024):
 @pytest.mark.parametrize("name,batch", [("tiny", 1024), ("mini", 131072)])
 def test_stream_splats_match_plain(dev, name, batch):
     """fused_splat_i8 exactly; fused_splat (bf16 colors) and its f32 mode
-    within rtol 1e-5 of index_add_'s f32 order; two runs identical."""
+    bit for bit equal to fused_splat_fixed_plain, the kernel's exact
+    function, which is within rtol 1e-5 of index_add_'s f32 order (the
+    CPU's plain version); two runs identical."""
     from flatmatch_tpu_torch.ops import splat as sp
 
     idx, col, T = _stream_of(name, dev, batch)
@@ -481,13 +483,17 @@ def test_stream_splats_match_plain(dev, name, batch):
     cases = [
         (sp.fused_splat_i8, (sp.splat_color_scale(cfg),),
          lambda: sp.fused_splat_i8_plain(idx.cpu(), col.cpu(), T,
-                                         sp.splat_color_scale(cfg))),
+                                         sp.splat_color_scale(cfg)), None),
         (sp.fused_splat, (bound,),
-         lambda: sp.fused_splat_plain(idx.cpu(), col.cpu(), T)),
+         lambda: sp.fused_splat_plain(idx.cpu(), col.cpu(), T),
+         lambda: sp.fused_splat_fixed_plain(idx.cpu(), col.cpu(), T,
+                                            bound)),
         (sp.scatter_splat, (bound,),
-         lambda: sp.scatter_plain(idx.cpu(), col.cpu(), T)),
+         lambda: sp.scatter_plain(idx.cpu(), col.cpu(), T),
+         lambda: sp.fused_splat_fixed_plain(idx.cpu(), col.cpu(), T, bound,
+                                            bf16=False)),
     ]
-    for fn, args, plain in cases:
+    for fn, args, plain, exact in cases:
         counter = sp.fused_splat_i8 if fn is sp.fused_splat_i8 \
             else sp.fused_splat
         before = counter.launches
@@ -497,15 +503,156 @@ def test_stream_splats_match_plain(dev, name, batch):
         assert torch.equal(a, b)
         want = plain()
         assert want.sum().item() > 0
-        if fn is sp.fused_splat_i8:
+        if exact is None:
             assert torch.equal(a.cpu(), want)
         else:
-            np.testing.assert_allclose(a.cpu().numpy(), want.numpy(),
+            assert torch.equal(a.cpu(), exact())
+            np.testing.assert_allclose(exact().numpy(), want.numpy(),
                                        rtol=1e-5, atol=1e-6)
         # a CPU stream takes the plain version and launches nothing
         got = fn(idx.cpu(), col.cpu(), T, *args)
         assert counter.launches == before + 2
         assert got.device.type == "cpu" and torch.equal(got, want)
+
+
+def _tiled_stream(name, dev, tmp_path):
+    """Batch 0's 1M-row stream of mini or of mini tiled k x k at the CLI's
+    defaults, its compact texel count and stream bound."""
+    import importlib.util
+
+    from flatmatch_tpu_torch.ops import splat as sp
+
+    png = FIXTURES / "mini.png"
+    if name != "mini":
+        spec = importlib.util.spec_from_file_location(
+            "make_layout", FIXTURES / "make_layout.py")
+        make_layout = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(make_layout)
+        k = int(name.split("x")[0])
+        png = tmp_path / f"mini_{name}.png"
+        make_layout.tiled(str(FIXTURES / "mini.png"), str(png), k, k)
+    cfg = dataclasses.replace(DEFAULT_CONFIG.photon, device_rng=True,
+                              splat="fused")
+    scene, _ = compile_scene(str(png), 30.0, DEFAULT_CONFIG)
+    aa_c, T, _ = pw.compact_aa(pack_aa(scene.walls, dev), scene.num_texels)
+    em = pack_emitters(scene, cfg.samples_per_area, cfg.window_color,
+                       cfg.light_color, device=dev)
+    B = cfg.photons_per_batch
+    idx, col = pw.trace_deposits_wide_rng(
+        aa_c.fields, aa_c.group_counts, pw.emitter_vector(em, 0),
+        rng.batch_seed(cfg.seed, 0), B, B, cfg)
+    return idx, col, T, sp.stream_bound(cfg)
+
+
+def _hold_row16(dev, idx, col, T, bound):
+    """Row 16 (bf16 and f32 colors, fused_splat and fused_splat_add) on a
+    stream against fused_splat_fixed_plain bit for bit, the device's
+    scratch zero after each call, and one launch counted per call."""
+    from flatmatch_tpu_torch.ops import splat as sp
+
+    lm0 = torch.from_numpy(np.random.RandomState(16).rand(T, 3).astype(
+        np.float32)).to(dev)
+    for bf16 in (True, False):
+        want = sp.fused_splat_fixed_plain(idx, col, T, bound, bf16)
+        before = sp.fused_splat.launches
+        got = sp.fused_splat(idx, col, T, bound, bf16)
+        assert not bool(sp._fixed_scratch[sp._scratch_key(idx.device)]
+                        .any())
+        lm = sp.fused_splat_add(lm0.clone(), idx, col, bound, bf16)
+        torch.cuda.synchronize()
+        assert sp.fused_splat.launches == before + 2
+        assert not bool(sp._fixed_scratch[sp._scratch_key(idx.device)]
+                        .any())
+        assert torch.equal(got, want)
+        assert torch.equal(lm, lm0 + want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,accumulator", [
+    ("mini", "arena"), ("4x4", "paged"), ("13x13", "paged")])
+def test_row16_equals_its_fixed_twin_bit_for_bit(dev, tmp_path, name,
+                                                 accumulator):
+    """Row 16's kernel on batch 0's 1M-row stream of mini (the whole
+    arena in shared memory) and of the 4x4 and 13x13 tilings (the paged
+    accumulator) equals fused_splat_fixed_plain bit for bit, in both color
+    instances and adding into a lightmap."""
+    from flatmatch_tpu_torch.ops import splat as sp
+
+    idx, col, T, bound = _tiled_stream(name, dev, tmp_path)
+    assert sp.splat_accumulator(T)[0] == accumulator
+    assert idx.shape[0] == 131072 * 8
+    _hold_row16(dev, idx, col, T, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [6008, 1 << 20])
+def test_row16_on_streams_that_stress_its_accumulators(dev, T):
+    """Seeded streams that no render makes: ids spread over the whole
+    arena (on 2^20 texels every block meets more pages than it holds, and
+    pages that share a directory entry), ids out of range, zero rows,
+    signed colors, a stream whose rows are not a multiple of four and one
+    that is not 16-byte aligned (the scalar loads), and an empty stream;
+    all equal fused_splat_fixed_plain bit for bit."""
+    rs = np.random.RandomState(T % 9973)
+    R = 300_003
+    idx = torch.from_numpy(rs.randint(-3, T + 3, R).astype(np.int32)).to(dev)
+    col = rs.uniform(-2.0, 18.0, (R, 3)).astype(np.float32)
+    col[rs.rand(R) < 0.2] = 0.0
+    col = torch.from_numpy(col).to(dev)
+    bound = 18.0 * R
+    _hold_row16(dev, idx, col, T, bound)
+    _hold_row16(dev, idx[1:], col[1:], T, bound)
+    _hold_row16(dev, idx[:0], col[:0], T, bound)
+
+
+@pytest.mark.cuda
+def test_row16_on_two_streams_at_once(dev):
+    """Two streams of one device splat at the same time, each on its own
+    scratch: every call equals fused_splat_fixed_plain bit for bit and
+    both scratches are left zero."""
+    from flatmatch_tpu_torch.ops import splat as sp
+
+    T, R = 6008, 1 << 20
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    inputs, outs = [], []
+    for seed, s in enumerate(streams):
+        rs = np.random.RandomState(seed)
+        idx = torch.from_numpy(rs.randint(0, T, R).astype(np.int32)).to(dev)
+        col = torch.from_numpy(rs.uniform(0.0, 18.0, (R, 3)).astype(
+            np.float32)).to(dev)
+        inputs.append((idx, col))
+    torch.cuda.synchronize()
+    for _ in range(4):
+        for s, (idx, col) in zip(streams, inputs):
+            with torch.cuda.stream(s):
+                outs.append((sp.fused_splat(idx, col, T, 18.0 * R),
+                             sp.fused_splat_add(torch.zeros((T, 3),
+                                                            device=dev),
+                                                idx, col, 18.0 * R)))
+    torch.cuda.synchronize()
+    keys = {(inputs[0][0].device, s.cuda_stream) for s in streams}
+    assert keys <= set(sp._fixed_scratch)
+    for k in keys:
+        assert not bool(sp._fixed_scratch[k].any())
+    for i, (got, lm) in enumerate(outs):
+        idx, col = inputs[i % 2]
+        want = sp.fused_splat_fixed_plain(idx, col, T, 18.0 * R)
+        assert torch.equal(got, want) and torch.equal(lm, want)
+
+
+@pytest.mark.cuda
+def test_accumulator_instance_follows_the_arena_size(dev):
+    """The arena instance while 24 T bytes fit in a block's 227 KB of
+    shared memory (mini's 6,008 texels), the paged one past that (the 4x4
+    tiling's 96,384: the directory and 36 pages)."""
+    from flatmatch_tpu_torch.ops import splat as sp
+
+    assert sp.splat_accumulator(6008) == ("arena", 24 * 6008)
+    assert sp.splat_accumulator(232448 // 24) == ("arena",
+                                                  24 * (232448 // 24))
+    inst, smem = sp.splat_accumulator(232448 // 24 + 1)
+    assert inst == "paged" and smem <= 232448
+    assert sp.splat_accumulator(96384) == ("paged", 229648)
 
 
 @pytest.mark.cuda
@@ -536,6 +683,14 @@ def test_stream_wrappers_refuse_bad_inputs(dev):
             sp.fused_splat(*bad, total_c, 100.0)
         with pytest.raises(ValueError):
             sp.fused_splat_i8(*bad, total_c, 0.1)
+        with pytest.raises(ValueError):
+            sp.fused_splat_add(torch.zeros((total_c, 3), device=dev), *bad,
+                               100.0)
+    for lm in (torch.zeros((total_c, 3)), torch.zeros((total_c, 3),
+                                                      device=dev).double(),
+               torch.zeros((3, total_c), device=dev).t()):
+        with pytest.raises(ValueError):
+            sp.fused_splat_add(lm, idx, col, 100.0)
 
 
 class _FailingLibrary:
@@ -577,6 +732,29 @@ def test_stream_wrappers_raise_on_a_failed_launch(dev, kernel, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         call()
     assert getattr(mod, kernel).launches == before
+
+
+@pytest.mark.cuda
+def test_fused_splat_add_raises_on_a_failed_launch(dev, monkeypatch):
+    """A CUDA error from fm_fused_splat_add raises; no launch is counted,
+    the lightmap is not touched by a fallback, and the scratch, which the
+    failed call may have left dirty, is dropped (the next call makes a
+    zeroed one)."""
+    from flatmatch_tpu_torch.ops import splat as sp
+    from flatmatch_tpu_torch.utils import cuda_build
+
+    idx = torch.zeros(16, dtype=torch.int32, device=dev)
+    col = torch.ones((16, 3), device=dev)
+    lm = torch.zeros((4, 3), device=dev)
+    sp.fused_splat_add(lm, idx, col, 100.0)
+    assert sp._scratch_key(idx.device) in sp._fixed_scratch
+    cuda_build.load_library()
+    monkeypatch.setattr(cuda_build, "_lib", _FailingLibrary())
+    before = sp.fused_splat.launches
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        sp.fused_splat_add(lm, idx, col, 100.0)
+    assert sp.fused_splat.launches == before
+    assert sp._scratch_key(idx.device) not in sp._fixed_scratch
 
 
 @pytest.mark.cuda
@@ -832,6 +1010,49 @@ def test_threefry_kernel_matches_plain(dev, rows, cols):
     k2 = threefry.fold_in(threefry.fold_in(threefry.prng_key(3), 5), 2)
     assert torch.equal(threefry.uniform(k2, (64, 100, 2), dev).cpu(),
                        threefry.uniform_plain(k2, (64, 100, 2)))
+
+
+def _plain_at(key, index):
+    """uniform_plain's function at the flat indices `index` (int64): the
+    same threefry2x32 bits and conversion, for draws too large to make in
+    full on the host."""
+    from flatmatch_tpu_torch.ops import threefry
+
+    b0, b1 = threefry.threefry2x32(key, index >> 32,
+                                   index & threefry.MASK32)
+    return ((b0 ^ b1) >> 9).to(torch.float32) * 2.0 ** -23
+
+
+@pytest.mark.cuda
+def test_threefry_kernel_past_2_32_elements(dev):
+    """The flat draw past 2^32 elements (the counter's high word set; a
+    launch for each 2^31 elements) and the largest transposed draw the
+    wrapper takes (just under 2^31 elements), against uniform_plain's
+    function at the same indices, bit for bit, at both ends and across
+    each 2^31 and 2^32 seam."""
+    from flatmatch_tpu_torch.ops import threefry
+
+    key = threefry.fold_in(threefry.prng_key(11), 3)
+    free, _ = torch.cuda.mem_get_info()
+    n = (1 << 32) + 4096
+    if free < 4 * n + (1 << 30):
+        pytest.skip(f"the draw needs {4 * n} bytes, {free} free")
+    flat = threefry.uniform(key, (n,), dev)
+    for lo, hi in ((0, 4096), ((1 << 31) - 2048, (1 << 31) + 2048),
+                   ((1 << 32) - 2048, n)):
+        index = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+        assert torch.equal(flat[lo:hi], _plain_at(key, index)), (lo, hi)
+    del flat
+    torch.cuda.empty_cache()
+    cols = 28
+    rows = ((1 << 31) - 1) // cols
+    tr = threefry.uniform(key, (rows, cols), dev, transposed=True)
+    assert tr.shape == (cols, rows)
+    for lo, hi in ((0, 4096), (rows - 4096, rows)):
+        p = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+        c = torch.arange(cols, dtype=torch.int64, device=dev)
+        want = _plain_at(key, p[None, :] * cols + c[:, None])
+        assert torch.equal(tr[:, lo:hi], want), (lo, hi)
 
 
 def _diff_uniform_calls(name, dev, n_valid, batch, power=1.7):
