@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from flatmatch_tpu_torch/csrc and drives the port's
-nine groups of paths on the card:
+ten groups of paths on the card:
 - the render: the production kernel against its plain PyTorch version,
   `tests/fixtures/mini.png` through the port's CLI at its defaults, the
   physics against the reference C engine's golden lightmap, and a 4x4
@@ -67,8 +67,17 @@ nine groups of paths on the card:
   transposed, radiosity's chunk) against their plain version bit for bit,
   each with its device ms and host µs per call, share of the bound,
   registers, shared bytes, blocks per SM and accumulator instance (phase
-  37).
-The kernels line's times, and phase 37's, are device times (device_ms:
+  37);
+- the redesigned narrow kernel (row 11, csrc/trace_deposits_narrow.cu) on
+  rotated mini, rotated 4x4 and, in its device-memory instance, rotated
+  13x13 against its plain version and rerun bit for bit, and the
+  redesigned 7-bit stream splat (row 15) and its adding entry on batch 0's
+  1M-row stream of mini (the int32 arena), the 4x4 tiling and 13x13 (the
+  paged accumulator) against fused_splat_i8_plain bit for bit, each with
+  its device ms and host µs per call, share of the bound, registers,
+  shared bytes and blocks per SM (phase 38).
+The kernels line's times, and phases 37's and 38's, are device times
+(device_ms:
 the calls queued behind a device sleep, so that no host work hides in
 them); the phases' other times bracket a host loop of calls with events
 (cuda_ms). Any failure exits non-zero. The line before the card's name lists every
@@ -108,6 +117,10 @@ KERNEL_SITES = {
                             f"{TPU_WIDE}:804"),
     "fused_splat_i8": ("ops.splat", "splat_stream",
                        "flatmatch_tpu/ops/splat_pallas.py:145"),
+    # row 15's adding entry (fm_fused_splat_i8_add): the same kernel, whose
+    # launches also count in fused_splat_i8's
+    "fused_splat_i8_add": ("ops.splat", "splat_stream",
+                           "flatmatch_tpu/ops/splat_pallas.py:145"),
     "fused_splat": ("ops.splat", "splat_stream",
                     "flatmatch_tpu/ops/splat_pallas.py:219"),
     "trace_splat_wide_rng_f32": ("engines.photon_wide", "trace_splat_wide",
@@ -172,14 +185,9 @@ MINI_AA_MEAN = 1.25e-4
 # sqrt/sin/cos, the basis, the new direction, attenuation and the deposit's
 # quantization); an emitted photon about 150; the fold adds about 10 per
 # traced bounce (three bf16 roundings, the dot and the suffix sum).
-# The general rect test of row 11 (csrc/trace_deposits_narrow.cu rect
-# loop): 33 f32 add/sub/mul/div (the plane dot products, the division, the
-# hit point and its two projections, the two far-edge differences) and 11
-# compares and selects.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_RECT_TEST = 20
-OPS_PER_GENERAL_RECT_TEST = 44
 OPS_PER_BOUNCE = 150
 OPS_PER_PHOTON = 150
 FOLD_OPS_PER_BOUNCE = 10
@@ -200,6 +208,18 @@ SPLAT_F32_OPS = 6
 # the 67 TFLOP/s of f32, which counts a fused multiply-add as two
 THREEFRY_OPS = 71
 INT32_OPS_PER_S = 128 * 132 * 1.98e9
+# The general rect test of row 11 (csrc/trace_deposits_narrow.cu rect
+# loop), counted in its SASS (tools/sass_loops.py, PERF.md): 17 FADD and 15
+# FMUL (the two plane dot products, n_off - p.n, the hit point, its two
+# projections and the two far-edge differences), the IEEE division's fast
+# path (MUFU.RCP, 5 FFMA, FCHK: 7), 7 compares and the 2 selects that keep
+# the minimum and its column: 48 instructions, none of which -fmad=false
+# lets fuse, at the rate the card issues them, 128 lanes an SM a cycle
+# (INT32_OPS_PER_S); the per-bounce and per-photon work (OPS_PER_BOUNCE,
+# OPS_PER_PHOTON) at the same rate. The table's loads, the loop control
+# and the stores are left out.
+GENERAL_RECT_TEST_INSTRUCTIONS = 48
+LANE_INSTR_PER_S = INT32_OPS_PER_S
 
 
 def rotated_scene(scene, degrees):
@@ -357,9 +377,12 @@ def trace_bound(s, bounces, photons, kernel, depth=8):
 def splat_bound(rows, T, kernel):
     """Bound of one stream splat: the stream read (16 bytes a row), the
     accumulator (int32 or int64 per texel and channel) and the f32
-    increment written; the per-channel operations of SPLAT_*_OPS."""
-    i8 = kernel == "fused_splat_i8"
+    increment written (the adding entries: the lightmap read and
+    written); the per-channel operations of SPLAT_*_OPS."""
+    i8 = kernel.startswith("fused_splat_i8")
     nbytes = 16 * rows + (12 if i8 else 24) * T + 12 * T
+    if kernel.endswith("_add"):
+        nbytes += 12 * T
     ops = 3 * rows * (SPLAT_I8_OPS if i8 else SPLAT_F32_OPS)
     return bound(nbytes, ops)
 
@@ -756,7 +779,7 @@ def profiled(fn):
             group = "trace_deposits_narrow.cu"
         elif "uniform_kernel" in name or "uniform_t_kernel" in name:
             group = "threefry.cu"
-        elif any(k in name for k in ("fused_splat", "descale_kernel",
+        elif any(k in name for k in ("fused_splat", "finish_kernel",
                                       "fixed_to_f32_kernel")):
             group = "splat_stream.cu"
         elif "memcpy" in name.lower() or "memset" in name.lower():
@@ -1045,10 +1068,16 @@ def stream_phases(dev, results, cfg, s, s5, s6):
     # plain version, and fused_splat_fixed_plain for row 16; the plain
     # pair (fused_splat_fixed_plain against index_add_'s f32 order, the
     # CPU's plain versions) within rtol 1e-5
+    lm18 = torch.from_numpy(np.random.RandomState(18).rand(T, 3).astype(
+        np.float32)).to(dev)
     splats = {
         "fused_splat_i8": (
             lambda: sp.fused_splat_i8(idx, col, T, scale),
             lambda: sp.fused_splat_i8_plain(idx, col, T, scale), None),
+        "fused_splat_i8_add": (
+            lambda: sp.fused_splat_i8_add(lm18.clone(), idx, col, scale),
+            lambda: lm18 + sp.fused_splat_i8_plain(idx, col, T, scale),
+            None),
         "fused_splat": (
             lambda: sp.fused_splat(idx, col, T, total),
             lambda: sp.fused_splat_fixed_plain(idx, col, T, total),
@@ -1103,7 +1132,8 @@ def stream_phases(dev, results, cfg, s, s5, s6):
             ("fused", True, ("trace_deposits_wide_rng", "fused_splat")),
             ("fused", False, ("trace_deposits_wide", "fused_splat",
                               "threefry_uniform")),
-            ("fused_i8", True, ("trace_deposits_wide_rng", "fused_splat_i8")),
+            ("fused_i8", True, ("trace_deposits_wide_rng", "fused_splat_i8",
+                                "fused_splat_i8_add")),
             ("scatter", True, ("trace_deposits_wide_rng", "fused_splat"))):
         key = f"{splat}_{'device_rng' if device_rng else 'threefry'}"
         c = route(s5["cfg"], device_rng, splat).photon
@@ -1131,7 +1161,8 @@ def stream_phases(dev, results, cfg, s, s5, s6):
             ("fused_threefry", ["--no-device-rng", "--splat", "fused"],
              ("trace_deposits_wide", "fused_splat", "threefry_uniform")),
             ("fused_i8_device_rng", ["--splat", "fused_i8"],
-             ("trace_deposits_wide_rng", "fused_splat_i8"))):
+             ("trace_deposits_wide_rng", "fused_splat_i8",
+              "fused_splat_i8_add"))):
         with tempfile.TemporaryDirectory() as tmp:
             wall, launches, out = cli_render([str(mini), "30", *flags], tmp,
                                              27)
@@ -2002,15 +2033,17 @@ def general_setup(scene, cfg, dev, gb=0):
 
 def narrow_bound(n_rects, bounces, photons, depth=8):
     """Bound of one row 11 launch: `bounces` traced bounces over all
-    n_rects rects (OPS_PER_GENERAL_RECT_TEST each, OPS_PER_BOUNCE more per
-    bounce, OPS_PER_PHOTON per photon); bytes: the [18, N] table and the
-    emitter vector, the [U, B] uniforms read, idx and col (16 bytes per
-    photon and bounce) written."""
-    ops = (bounces * (n_rects * OPS_PER_GENERAL_RECT_TEST + OPS_PER_BOUNCE)
-           + photons * OPS_PER_PHOTON)
+    n_rects rects (GENERAL_RECT_TEST_INSTRUCTIONS each, OPS_PER_BOUNCE more
+    per bounce, OPS_PER_PHOTON per photon, at LANE_INSTR_PER_S); bytes: the
+    [18, N] table and the emitter vector, the [U, B] uniforms read, idx and
+    col (16 bytes per photon and bounce) written."""
+    ops = (bounces * (n_rects * GENERAL_RECT_TEST_INSTRUCTIONS
+                      + OPS_PER_BOUNCE) + photons * OPS_PER_PHOTON)
     nbytes = (4 * (18 * n_rects + 16) + 4 * (4 + 3 * depth) * photons
               + 16 * depth * photons)
-    return bound(nbytes, ops)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / LANE_INSTR_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
 def narrow_vs_plain(g, cfg, n_valid, reps=20, plain_reps=2):
@@ -2220,7 +2253,7 @@ def general_phases(dev, results, make_layout):
         photon_xla_8_batches=dict(wall_s=xla8, s_per_batch=xla8 / 8,
                                   whole_render_s_extrapolated=xla8 / 8
                                   * batches6))
-    del g6, tex6, lm
+    del tex6, lm
 
     # 35. rotated 13x13 past shared memory; the general AO of mini ----------
     with tempfile.TemporaryDirectory() as tmp:
@@ -2232,7 +2265,6 @@ def general_phases(dev, results, make_layout):
     check(n13 == 4563 and 4 * 18 * n13 > 232448,
           f"rotated 13x13: {n13} rects fit in shared memory")
     k35 = narrow_vs_plain(g13, cfg, B, reps=3, plain_reps=1)
-    del g13
     cfg_ao = cfg.replace(engine=Engine.AMBIENT_OCCLUSION)
     ao_out = {}
     for name, sc in (("mini", scene), ("rotated_mini", rscene)):
@@ -2254,6 +2286,8 @@ def general_phases(dev, results, make_layout):
     say("general_past_shared_memory_and_ao", rotated_13x13=dict(
         table_bytes=4 * 18 * n13, **k35), general_ao=ao_out,
         level0_texels=int(sum(num_tiles(w) for w in scene.walls)))
+    return {"rotated_mini": general_setup(rscene, cfg, dev),
+            "rotated_4x4": g6, "rotated_13x13": g13}
 
 
 def _fit_cfg(ph, flags):
@@ -2524,17 +2558,21 @@ def redesigned_trace_phase(dev, cfg, s, s6, make_layout):
 # --------------------------------------------------------------------------
 # the redesigned stream splat and the threefry draws (37)
 # --------------------------------------------------------------------------
-def splat_occupancy(T, regs, bf16):
+def splat_occupancy(T, regs, bf16, i8=False):
     """(accumulator instance, registers, shared bytes, blocks per SM) of
-    row 16's kernel on an arena of T texels: the instance and its shared
-    bytes as csrc/splat_stream.cu chooses them (ops/splat.splat_accumulator
-    asks it), 1024 threads a block."""
+    row 16's kernel (with i8, row 15's) on an arena of T texels: the
+    instance and its shared bytes as csrc/splat_stream.cu chooses them
+    (ops/splat.splat_accumulator asks it), 1024 threads a block. The
+    kernel template's symbol names its slot type and instance."""
     from flatmatch_tpu_torch.ops import splat as sp
 
-    inst, smem = sp.splat_accumulator(T)
-    sym = f"fused_splat_kernelILb{int(bf16)}ELi{int(inst == 'paged')}E"
-    found = [r for name, r in regs.items() if sym in name]
-    check(len(found) == 1, f"{sym}: {len(found)} kernels in the ptxas log")
+    inst, smem = sp.splat_accumulator(T, i8=i8)
+    slot = "I8SlotE" if i8 else f"FixedSlotILb{int(bf16)}EEE"
+    sym = f"{slot}Li{int(inst == 'paged')}E"
+    found = [r for name, r in regs.items()
+             if "fused_splat_kernel" in name and sym in name]
+    check(len(found) == 1, f"{sym}: {len(found)} kernels in the ptxas log "
+          f"{sorted(n for n in regs if 'fused_splat_kernel' in n)}")
     r = found[0]
     blocks = min(SM_REGISTERS // (-(-r // 8) * 8 * 1024),
                  SM_SMEM // (smem + 1024), SM_THREADS // 1024)
@@ -2654,6 +2692,122 @@ def redesigned_splat_phase(dev, results, cfg, scenes):
     results["fused_splat"].update(ms=mini["fused_splat"]["ms"])
     results["threefry_uniform"].update(ms=mini["threefry_t"]["ms"])
     say("redesigned_splat", **k37)
+
+
+# --------------------------------------------------------------------------
+# the redesigned narrow kernel (row 11) and 7-bit stream splat (row 15) (38)
+# --------------------------------------------------------------------------
+NARROW_THREADS = 256
+NARROW_SYMBOLS = {"staged": "trace_deposits_narrow_kernelILb1ELb1E",
+                  "table": "trace_deposits_narrow_kernelILb1ELb0E",
+                  "device": "trace_deposits_narrow_kernelILb0ELb0E"}
+
+
+def narrow_occupancy(n_rects, depth, regs, dev):
+    """(instance, registers, shared bytes, blocks per SM) of row 11 on a
+    table of n_rects: the instance and its shared bytes as
+    csrc/trace_deposits_narrow.cu chooses them (photon_narrow.
+    narrow_instance asks it), the registers from the ptxas log."""
+    from flatmatch_tpu_torch.engines import photon_narrow as pn
+
+    inst, smem = pn.narrow_instance(n_rects, depth, dev)
+    found = [r for name, r in regs.items() if NARROW_SYMBOLS[inst] in name]
+    check(len(found) == 1, f"{inst}: {len(found)} kernels in the ptxas log")
+    r = found[0]
+    blocks = min(SM_REGISTERS // (-(-r // 8) * 8 * NARROW_THREADS),
+                 SM_SMEM // (smem + 1024), SM_THREADS // NARROW_THREADS)
+    return inst, r, smem, blocks
+
+
+def redesigned_narrow_splat_phase(dev, results, cfg, gens, scenes):
+    """38. the redesigned narrow kernel (row 11, csrc/
+    trace_deposits_narrow.cu) on batch 0 of rotated mini, rotated 4x4 and
+    rotated 13x13 (`gens`: the shared-memory instance, then the
+    device-memory one), against its plain version at phase 31's bands and
+    rerun bit for bit; and the redesigned 7-bit stream splat (row 15,
+    csrc/splat_stream.cu) on batch 0's 1M-row stream of mini (the int32
+    arena), the 4x4 tiling and mini tiled 13x13 (the paged accumulator),
+    fused_splat_i8 and fused_splat_i8_add each against
+    fused_splat_i8_plain (and lm + it) bit for bit, the device's scratch
+    zero after every call. Each with its device ms and host µs a call
+    (device_ms), the share of its bound, registers, shared bytes and
+    blocks per SM."""
+    import numpy as np
+    import torch
+
+    from flatmatch_tpu_torch.engines import photon_narrow as pn
+    from flatmatch_tpu_torch.engines import photon_wide as pw
+    from flatmatch_tpu_torch.ops import splat as sp
+    from flatmatch_tpu_torch.utils import cuda_build
+
+    regs = ptxas_registers(cuda_build.build_info["log"])
+    ph = cfg.photon
+    B, D = ph.photons_per_batch, ph.max_depth
+    k38 = {}
+    for scene, g in gens.items():
+        k = narrow_vs_plain(g, cfg, B, reps=2, plain_reps=1)
+        args = (g["table"], g["ev"], g["u_t"], B, ph)
+        reps = {"rotated_mini": 50, "rotated_4x4": 10}.get(scene, 2)
+        ms, host_us = device_ms(lambda: pn.trace_deposits_narrow(*args),
+                                reps)
+        inst, r, smem, blocks = narrow_occupancy(k["rects"], D, regs, dev)
+        k.update(ms=ms, host_us=host_us, share_of_bound=k["bound_ms"] / ms,
+                 instance=inst, registers=r, shared_bytes=smem,
+                 blocks_per_sm=blocks)
+        k38[scene] = k
+    insts = [k38[s]["instance"] for s in gens]
+    check(insts[0] != "device" and insts[1] != "device"
+          and insts[2] == "device", f"row 11's instances {insts}")
+    results["trace_deposits_narrow"].update(
+        ms=k38["rotated_mini"]["ms"], bound_ms=k38["rotated_mini"][
+            "bound_ms"], bound_by=k38["rotated_mini"]["bound_by"])
+
+    scale = sp.splat_color_scale(ph)
+    for scene, st in scenes.items():
+        f, gc = st["aa_c"].fields, st["aa_c"].group_counts
+        T = st["total_c"]
+        idx, col = pw.trace_deposits_wide_rng(f, gc, st["ev"], st["seed"],
+                                              B, B, ph, pw.stream_block(B))
+        R = idx.shape[0]
+        lm0 = torch.from_numpy(np.random.RandomState(38).rand(T, 3).astype(
+            np.float32)).to(dev)
+        lm = lm0.clone()
+        want = sp.fused_splat_i8_plain(idx, col, T, scale)
+        calls = {
+            "fused_splat_i8": (lambda: sp.fused_splat_i8(idx, col, T, scale),
+                               want),
+            "fused_splat_i8_add": (
+                lambda: sp.fused_splat_i8_add(lm, idx, col, scale),
+                lm0 + want),
+        }
+        k = {}
+        for name, (run, exact) in calls.items():
+            got = run().clone()
+            sync()
+            check(exact.sum().item() > 0, f"{scene} {name}: plain is empty")
+            check(torch.equal(got, exact), f"{scene} {name}: differs from "
+                  f"fused_splat_i8_plain")
+            scratch = sp._i8_scratch[sp._scratch_key(dev)]
+            check(not bool(scratch.any()),
+                  f"{scene} {name}: the scratch was not left zeroed")
+            ms, host_us = device_ms(run, 50)
+            bnd = splat_bound(R, T, name)
+            inst, r, smem, blocks = splat_occupancy(T, regs, False, i8=True)
+            k[name] = dict(equal_to_plain=True, ms=ms, host_us=host_us,
+                           bound_ms=bnd[0], bound_by=bnd[1],
+                           share_of_bound=bnd[0] / ms, accumulator=inst,
+                           registers=r, shared_bytes=smem,
+                           blocks_per_sm=blocks)
+        check(k["fused_splat_i8"]["accumulator"] == (
+            "arena" if scene == "mini" else "paged"),
+            f"{scene}: row 15 took the {k['fused_splat_i8']['accumulator']}"
+            f" accumulator")
+        k38[scene] = dict(rows=R, texels=T, kernels=k)
+    for name in ("fused_splat_i8", "fused_splat_i8_add"):
+        mini = k38["mini"]["kernels"][name]
+        results[name].update(ms=mini["ms"], bound_ms=mini["bound_ms"],
+                             bound_by=mini["bound_by"])
+    say("redesigned_narrow_and_i8_splat", **k38)
 
 
 def main():
@@ -2988,10 +3142,12 @@ def main():
     stream_phases(dev, results, cfg, s, dict(s5, cfg=cfg5), s6)
     inkernel_phases(dev, results, cfg, s, dict(s5, cfg=cfg5), s6)
     threefry_phases(dev, results, cfg, s, s6, make_layout)
-    general_phases(dev, results, make_layout)
+    gens = general_phases(dev, results, make_layout)
     s13 = redesigned_trace_phase(dev, cfg, s, s6, make_layout)
     redesigned_splat_phase(dev, results, cfg, {"mini": s, "4x4": s6,
                                                "13x13": s13})
+    redesigned_narrow_splat_phase(dev, results, cfg, gens,
+                                  {"mini": s, "4x4": s6, "13x13": s13})
 
     print(json.dumps({"kernels": [dict(KERNELS[k], **results[k])
                                   for k in KERNELS]}))

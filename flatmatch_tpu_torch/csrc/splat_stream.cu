@@ -7,7 +7,7 @@
 //     grid, clip(floor(c * inv_s + dither01(row * 3 + ch)), 0, 127), summed
 //     exactly into an int32 accumulator by integer atomicAdd, then de-scaled
 //     once (acc * scale). Integer sums do not depend on order, so the
-//     result equals the JAX package's bit for bit; one thread per row;
+//     result equals the JAX package's bit for bit;
 //   - fused_splat (:219, kernel :73): each color rounded to bf16 once
 //     (round to nearest even, as astype(bfloat16)), summed in f32. With
 //     kBf16 = false the colors stay f32: the `scatter` and `bucket_exact`
@@ -24,40 +24,44 @@
 // f32 order. Ids outside [0, T) are skipped, as the JAX one-hot drops them;
 // zero colors are skipped.
 //
-// What bounds the f32 splat on an H100, and the design. The bytes are 16 a
+// What bounds both splats on an H100, and the design. The bytes are 16 a
 // row (1M rows of a 131072-photon batch: 16.8 MB, 5 us at 3.35 TB/s) and
-// the [T, 3] sums. One 64-bit L2 atomic per non-zero channel (the first
-// port) put 2.5M atomics a batch on the ~18k slots that one emitter's batch
-// lights, each about 138 times, and serialized there. Here each block sums
-// its run of rows into a private accumulator in shared memory, then adds
-// its non-zero slots to the int64 accumulator in device memory, coalesced:
-//   - 32-bit shared atomics on the two halves of each 64-bit slot, the
-//     carry of the low half taken from its atomicAdd's return value: exact,
-//     and 1.7x faster than a 64-bit shared atomicAdd, which sm_90 runs as a
-//     compare-and-swap loop (ATOMS.CAST.SPIN.64);
+// the [T, 3] sums. One L2 atomic per non-zero channel (the first port) put
+// 2.5M atomics a batch on the ~18k slots that one emitter's batch lights,
+// each about 138 times, and serialized there. Here each block sums its run
+// of rows into a private accumulator in shared memory, then adds its
+// non-zero slots to the accumulator in device memory (int64 for the f32
+// splat, int32 for the 7-bit one), coalesced; one kernel template serves
+// both, on the slot type (FixedSlot, I8Slot):
+//   - the int64 slots: 32-bit shared atomics on the two halves of each
+//     slot, the carry of the low half taken from its atomicAdd's return
+//     value: exact, and 1.7x faster than a 64-bit shared atomicAdd, which
+//     sm_90 runs as a compare-and-swap loop (ATOMS.CAST.SPIN.64); the int32
+//     slots take sm_90's native 32-bit shared atomicAdd;
 //   - one block of 1024 threads a SM (an accumulator takes most of the
 //     SM's shared memory), at least 8,192 rows a block: more blocks read
 //     the stream faster and flush more slots, and one a SM was fastest on
 //     mini and the 4x4 tiling;
 //   - each thread reads four rows as 16-byte loads (an int4 of ids, three
-//     float4 of colors) and loads its next four before it sums the last.
+//     float4 of colors) and loads its next four before it sums the last;
+//     the 7-bit grid's dither is keyed by the row, 4 q + k for row k of
+//     quad q.
 // Two accumulator instances, chosen by the arena's size:
-//   - arena: the whole [T, 3] accumulator in shared memory (24 T bytes,
-//     up to 9,685 texels: mini's 6,008 take 144 KB);
+//   - arena: the whole [T, 3] accumulator in shared memory (24 T bytes for
+//     int64 slots, up to 9,685 texels: mini's 6,008 take 144 KB; 12 T
+//     bytes for int32, up to 19,370);
 //   - paged: a table of up to kMaxPages pages of 256 texels, claimed by a
 //     block on the first non-zero row that hits each page through a
 //     1,024-entry directory keyed by page id; a row whose page finds no
 //     entry or no free page adds to device memory directly (one emitter's
 //     batch of the 4x4 tiling lights 33 pages of its 377).
-// The finishing pass converts each slot once and zeroes it, so the int64
-// scratch is left zeroed for the next call (no memset), and either writes
-// the increment (fm_fused_splat) or adds it into the lightmap
-// (fm_fused_splat_add: lm[i] + f32(acc[i]) * 2^-k, rounded as `lm += inc`
-// rounds it under -fmad=false). A call is two launches. PERF.md has the
-// measurements and the ablation behind each choice.
-//
-// The 7-bit splat (row 15) keeps one thread per row and global int32
-// atomics.
+// The finishing pass converts each slot once and zeroes it, so the scratch
+// is left zeroed for the next call (no memset), and either writes the
+// increment (fm_fused_splat, fm_fused_splat_i8) or adds it into the
+// lightmap (fm_fused_splat_add: lm[i] + f32(acc[i]) * 2^-k;
+// fm_fused_splat_i8_add: lm[i] + f32(acc[i]) * scale; each rounded as
+// `lm += inc` rounds it under -fmad=false). A call is two launches.
+// PERF.md has the measurements and the ablation behind each choice.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false (see
 // flatmatch_tpu_torch/utils/cuda_build.py).
@@ -67,31 +71,6 @@
 #include "trace_wide.cuh"
 
 namespace {
-
-__global__ void __launch_bounds__(kThreads)
-fused_splat_i8_kernel(const int* __restrict__ idx,
-                      const float* __restrict__ col, int rows, int num_texels,
-                      float inv_s, int* __restrict__ acc) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const int t = idx[r];
-  if (static_cast<unsigned>(t) >= static_cast<unsigned>(num_texels)) return;
-  // dither01 keys row * 3 + ch, in int32 wrap arithmetic
-  const uint32_t key = static_cast<uint32_t>(r) * 3u;
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    const int q = quant(col[3 * static_cast<size_t>(r) + ch], inv_s,
-                        key + static_cast<uint32_t>(ch));
-    if (q) atomicAdd(acc + 3 * t + ch, q);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-descale_kernel(const int* __restrict__ acc, int n, float scale,
-               float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = static_cast<float>(acc[i]) * scale;
-}
 
 constexpr int kSplatThreads = 1024;
 constexpr int kSplatMinRows = 8192;      // rows a block takes at least
@@ -105,9 +84,37 @@ constexpr size_t kDirBytes = sizeof(int) * (2 * kDirEntries + kMaxPages + 4);
 
 enum Accumulator { kArena = 0, kPaged = 1 };
 
-// a += v on a 64-bit slot in shared memory, exactly (mod 2^64)
+// The slot types: what a color adds (value: false when it adds nothing)
+// and how a slot in shared memory takes it.
+// The fixed-point f32 splat: int64 slots, to_fixed (trace_wide.cuh).
+template <bool kBf16>
+struct FixedSlot {
+  using T = unsigned long long;
+  float scale;   // 2^k
+  __device__ __forceinline__ bool value(float c, uint32_t, T* v) const {
+    long long x;
+    if (!to_fixed<kBf16>(c, scale, &x)) return false;
+    *v = static_cast<T>(x);
+    return true;
+  }
+};
+
+// The 7-bit splat: int32 slots, quant (trace_wide.cuh) keyed by row * 3 +
+// ch in 32-bit wrap arithmetic (dither01).
+struct I8Slot {
+  using T = int;
+  float inv_s;
+  __device__ __forceinline__ bool value(float c, uint32_t key, T* v) const {
+    *v = quant(c, inv_s, key);
+    return *v != 0;
+  }
+};
+
+// a += v on a slot in shared memory, exactly (mod 2^64 or 2^32)
+__device__ __forceinline__ void shared_add(int* a, int v) { atomicAdd(a, v); }
+
 __device__ __forceinline__ void shared_add(unsigned long long* a,
-                                           long long v) {
+                                           unsigned long long v) {
   // the low half by a 32-bit atomicAdd, whose return value says whether
   // it carried; the high half takes the value's high word and the carry
   unsigned* w = reinterpret_cast<unsigned*>(a);
@@ -119,12 +126,13 @@ __device__ __forceinline__ void shared_add(unsigned long long* a,
   if (h != 0) atomicAdd(w + 1, h);
 }
 
+template <class T>
 struct Pages {
   int* keys;        // [kDirEntries] page id, -1 when free
   int* entry_page;  // [kDirEntries] page slot of the entry, -1 when none
   int* page_id;     // [kMaxPages] page id of each claimed slot
   int* used;        // claimed slots (may pass `cap`: the rest are refused)
-  unsigned long long* sums;   // [cap][kPageSlots]
+  T* sums;          // [cap][kPageSlots]
   int cap;
 
   // the slot of texel page p in this block, claimed on first use; -1 when
@@ -145,27 +153,28 @@ struct Pages {
   }
 };
 
-// Add one stream row to the block's accumulator (kArena: `arena`, kPaged:
-// `pages`, with device memory for the rows they refuse).
-template <bool kBf16, int kAcc>
-__device__ __forceinline__ void add_row(unsigned long long* arena,
-                                        const Pages& pages,
-                                        unsigned long long* __restrict__ acc,
-                                        int num_texels, float scale, int t,
+// Add stream row r (id t, colors c0..c2) to the block's accumulator
+// (kArena: `arena`, kPaged: `pages`, with device memory for the rows they
+// refuse).
+template <class Slot, int kAcc, class T = typename Slot::T>
+__device__ __forceinline__ void add_row(T* arena, const Pages<T>& pages,
+                                        T* __restrict__ acc, int num_texels,
+                                        const Slot& slot, int r, int t,
                                         float c0, float c1, float c2) {
   if (static_cast<unsigned>(t) >= static_cast<unsigned>(num_texels)) return;
-  long long v[3] = {0, 0, 0};
-  const bool any = to_fixed<kBf16>(c0, scale, &v[0]) |
-                   to_fixed<kBf16>(c1, scale, &v[1]) |
-                   to_fixed<kBf16>(c2, scale, &v[2]);
+  const uint32_t key = static_cast<uint32_t>(r) * 3u;
+  T v[3] = {0, 0, 0};
+  const bool any = slot.value(c0, key, &v[0]) |
+                   slot.value(c1, key + 1u, &v[1]) |
+                   slot.value(c2, key + 2u, &v[2]);
   if (!any) return;
-  unsigned long long* s = nullptr;
+  T* s = nullptr;
   if (kAcc == kArena) {
     s = arena + 3 * t;
   } else {
-    const int slot = pages.slot(t / kPageTexels);
-    if (slot >= 0) {
-      s = pages.sums + slot * kPageSlots + 3 * (t % kPageTexels);
+    const int page = pages.slot(t / kPageTexels);
+    if (page >= 0) {
+      s = pages.sums + page * kPageSlots + 3 * (t % kPageTexels);
     }
   }
   if (s != nullptr) {
@@ -174,10 +183,10 @@ __device__ __forceinline__ void add_row(unsigned long long* arena,
       if (v[ch] != 0) shared_add(s + ch, v[ch]);
     }
   } else {
-    unsigned long long* g = acc + 3 * static_cast<size_t>(t);
+    T* g = acc + 3 * static_cast<size_t>(t);
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
-      if (v[ch] != 0) atomicAdd(g + ch, static_cast<unsigned long long>(v[ch]));
+      if (v[ch] != 0) atomicAdd(g + ch, v[ch]);
     }
   }
 }
@@ -194,28 +203,27 @@ __device__ __forceinline__ Quad load_quad(const int4* __restrict__ idx4,
               __ldg(col4 + 3 * q + 2)};
 }
 
-// Sum `rows` stream rows into the zeroed int64 [num_texels, 3] accumulator
-// `acc`. Block b takes quads (four rows, 16-byte aligned) [q0, q1) of the
-// first `quads`, each thread loading its next quad before it sums the last;
-// the rows past the quads (rows % 4, or all rows when the stream is not
-// 16-byte aligned and quads == 0) go one a thread over the grid.
-template <bool kBf16, int kAcc>
+// Sum `rows` stream rows into the zeroed [num_texels, 3] accumulator `acc`
+// of Slot::T. Block b takes quads (four rows, 16-byte aligned) [q0, q1) of
+// the first `quads`, each thread loading its next quad before it sums the
+// last; the rows past the quads (rows % 4, or all rows when the stream is
+// not 16-byte aligned and quads == 0) go one a thread over the grid.
+template <class Slot, int kAcc, class T = typename Slot::T>
 __global__ void __launch_bounds__(kSplatThreads, 1)
 fused_splat_kernel(const int* __restrict__ idx, const float* __restrict__ col,
-                   int rows, int quads, int num_texels, float scale, int cap,
-                   unsigned long long* __restrict__ acc) {
+                   int rows, int quads, int num_texels, Slot slot, int cap,
+                   T* __restrict__ acc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
-  unsigned long long* arena = reinterpret_cast<unsigned long long*>(smem);
-  Pages pages{};
+  T* arena = reinterpret_cast<T*>(smem);
+  Pages<T> pages{};
   if (kAcc == kArena) {
     for (int i = tid; i < 3 * num_texels; i += kSplatThreads) arena[i] = 0;
   } else {
     int* dir = reinterpret_cast<int*>(smem);
-    pages = Pages{dir, dir + kDirEntries, dir + 2 * kDirEntries,
-                  dir + 2 * kDirEntries + kMaxPages,
-                  reinterpret_cast<unsigned long long*>(smem + kDirBytes),
-                  cap};
+    pages = Pages<T>{dir, dir + kDirEntries, dir + 2 * kDirEntries,
+                     dir + 2 * kDirEntries + kMaxPages,
+                     reinterpret_cast<T*>(smem + kDirBytes), cap};
     for (int i = tid; i < 2 * kDirEntries; i += kSplatThreads) dir[i] = -1;
     if (tid == 0) *pages.used = 0;
     for (int i = tid; i < cap * kPageSlots; i += kSplatThreads) {
@@ -236,22 +244,23 @@ fused_splat_kernel(const int* __restrict__ idx, const float* __restrict__ col,
     const int nq = q + kSplatThreads;
     Quad next = cur;
     if (nq < q1) next = load_quad(idx4, col4, nq);
-    add_row<kBf16, kAcc>(arena, pages, acc, num_texels, scale, cur.t.x,
-                         cur.a.x, cur.a.y, cur.a.z);
-    add_row<kBf16, kAcc>(arena, pages, acc, num_texels, scale, cur.t.y,
-                         cur.a.w, cur.b.x, cur.b.y);
-    add_row<kBf16, kAcc>(arena, pages, acc, num_texels, scale, cur.t.z,
-                         cur.b.z, cur.b.w, cur.c.x);
-    add_row<kBf16, kAcc>(arena, pages, acc, num_texels, scale, cur.t.w,
-                         cur.c.y, cur.c.z, cur.c.w);
+    const int r = 4 * q;
+    add_row<Slot, kAcc>(arena, pages, acc, num_texels, slot, r, cur.t.x,
+                        cur.a.x, cur.a.y, cur.a.z);
+    add_row<Slot, kAcc>(arena, pages, acc, num_texels, slot, r + 1, cur.t.y,
+                        cur.a.w, cur.b.x, cur.b.y);
+    add_row<Slot, kAcc>(arena, pages, acc, num_texels, slot, r + 2, cur.t.z,
+                        cur.b.z, cur.b.w, cur.c.x);
+    add_row<Slot, kAcc>(arena, pages, acc, num_texels, slot, r + 3, cur.t.w,
+                        cur.c.y, cur.c.z, cur.c.w);
     cur = next;
     q = nq;
   }
   for (int r = 4 * quads + blockIdx.x * kSplatThreads + tid; r < rows;
        r += gridDim.x * kSplatThreads) {
     const size_t c = 3 * static_cast<size_t>(r);
-    add_row<kBf16, kAcc>(arena, pages, acc, num_texels, scale, idx[r],
-                         col[c], col[c + 1], col[c + 2]);
+    add_row<Slot, kAcc>(arena, pages, acc, num_texels, slot, r, idx[r],
+                        col[c], col[c + 1], col[c + 2]);
   }
   __syncthreads();
 
@@ -259,13 +268,13 @@ fused_splat_kernel(const int* __restrict__ idx, const float* __restrict__ col,
   // neighbouring slots
   if (kAcc == kArena) {
     for (int i = tid; i < 3 * num_texels; i += kSplatThreads) {
-      const unsigned long long v = arena[i];
+      const T v = arena[i];
       if (v != 0) atomicAdd(acc + i, v);
     }
   } else {
     const int used = min(*pages.used, cap);
     for (int i = tid; i < used * kPageSlots; i += kSplatThreads) {
-      const unsigned long long v = pages.sums[i];
+      const T v = pages.sums[i];
       if (v != 0) {
         const int s = i / kPageSlots;
         atomicAdd(acc + static_cast<size_t>(pages.page_id[s]) * kPageSlots +
@@ -276,49 +285,57 @@ fused_splat_kernel(const int* __restrict__ idx, const float* __restrict__ col,
   }
 }
 
-// Finish: f = f32(acc[i]) * 2^-k, one rounding, then an exact power-of-two
-// scaling; out[i] = f, or with kAdd out[i] += f. Each non-zero slot is
-// zeroed, so the scratch is zero again for the next call.
-template <bool kAdd>
+// Finish: f = f32(acc[i]) * scale (2^-k: one rounding, then an exact
+// power-of-two scaling; the 7-bit grid's spacing: two roundings, as
+// `acc.float() * scale`); out[i] = f, or with kAdd out[i] += f. Each
+// non-zero slot is zeroed, so the scratch is zero again for the next call.
+__device__ __forceinline__ float slot_float(unsigned long long v) {
+  return __ll2float_rn(static_cast<long long>(v));
+}
+
+__device__ __forceinline__ float slot_float(int v) { return __int2float_rn(v); }
+
+template <class T, bool kAdd>
 __global__ void __launch_bounds__(kThreads)
-fixed_finish_kernel(long long* __restrict__ acc, int n, float from_fixed,
-                    float* __restrict__ out) {
+finish_kernel(T* __restrict__ acc, int n, float scale,
+              float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const long long v = acc[i];
+  const T v = acc[i];
   if (v != 0) acc[i] = 0;
-  const float f = __ll2float_rn(v) * from_fixed;
+  const float f = slot_float(v) * scale;
   out[i] = kAdd ? out[i] + f : f;
 }
 
-// The accumulator instance for an arena of num_texels texels, and its
-// dynamic shared memory: the arena when its 24 T bytes fit in a block, else
-// the pages (fm_fused_splat_plan reports this choice).
-Accumulator accumulator_of(int num_texels, int* cap, size_t* smem) {
-  const size_t arena = sizeof(long long) * 3 * static_cast<size_t>(num_texels);
+// The accumulator instance for an arena of num_texels texels of `slot`
+// bytes a channel, and its dynamic shared memory: the arena when its
+// 3 * slot * T bytes fit in a block, else the pages (fm_fused_splat_plan
+// and fm_fused_splat_i8_plan report this choice).
+Accumulator accumulator_of(int num_texels, size_t slot, int* cap,
+                           size_t* smem) {
+  const size_t arena = slot * 3 * static_cast<size_t>(num_texels);
   if (arena <= kSmemLimit) {
     *cap = 0;
     *smem = arena;
     return kArena;
   }
   const int pages = (num_texels + kPageTexels - 1) / kPageTexels;
-  const int fit = static_cast<int>((kSmemLimit - kDirBytes) /
-                                   (sizeof(long long) * kPageSlots));
+  const int fit =
+      static_cast<int>((kSmemLimit - kDirBytes) / (slot * kPageSlots));
   *cap = std::min(std::min(kMaxPages, fit), pages);
-  *smem = kDirBytes + sizeof(long long) * kPageSlots * *cap;
+  *smem = kDirBytes + slot * kPageSlots * *cap;
   return kPaged;
 }
 
-template <bool kBf16>
-int launch_splat(const int* idx, const float* col, long long* acc, int rows,
-                 int num_texels, float to_fixed_scale, cudaStream_t s) {
+template <class Slot, class T = typename Slot::T>
+int launch_splat(const int* idx, const float* col, T* acc, int rows,
+                 int num_texels, Slot slot, cudaStream_t s) {
   int cap;
   size_t smem;
-  const Accumulator a = accumulator_of(num_texels, &cap, &smem);
-  void (*k)(const int*, const float*, int, int, int, float, int,
-            unsigned long long*) = a == kArena
-                                       ? fused_splat_kernel<kBf16, kArena>
-                                       : fused_splat_kernel<kBf16, kPaged>;
+  const Accumulator a = accumulator_of(num_texels, sizeof(T), &cap, &smem);
+  void (*k)(const int*, const float*, int, int, int, Slot, int, T*) =
+      a == kArena ? fused_splat_kernel<Slot, kArena>
+                  : fused_splat_kernel<Slot, kPaged>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -334,9 +351,26 @@ int launch_splat(const int* idx, const float* col, long long* acc, int rows,
   if (most <= 0) return sm_count_error();
   const int want = (rows + kSplatMinRows - 1) / kSplatMinRows;
   const int blocks = std::max(1, std::min(most, want));
-  k<<<blocks, kSplatThreads, smem, s>>>(
-      idx, col, rows, quads, num_texels, to_fixed_scale, cap,
-      reinterpret_cast<unsigned long long*>(acc));
+  k<<<blocks, kSplatThreads, smem, s>>>(idx, col, rows, quads, num_texels,
+                                        slot, cap, acc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Splat, then finish into `out` (kAdd: add into it); acc is zero on entry
+// and left zero.
+template <bool kAdd, class Slot, class T = typename Slot::T>
+int splat_entry(const int* idx, const float* col, T* acc, float* out,
+                int rows, int num_texels, Slot slot, float scale,
+                void* stream) {
+  if (num_texels <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows > 0) {
+    const int err = launch_splat(idx, col, acc, rows, num_texels, slot, s);
+    if (err != 0) return err;
+  }
+  const int n = 3 * num_texels;
+  finish_kernel<T, kAdd><<<blocks_for(n), kThreads, 0, s>>>(acc, n, scale,
+                                                            out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -344,20 +378,14 @@ template <bool kAdd>
 int fused_splat_entry(const int* idx, const float* col, long long* acc,
                       float* out, int rows, int num_texels, int round_bf16,
                       float to_fixed_scale, float from_fixed, void* stream) {
-  if (num_texels <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows > 0) {
-    const int err =
-        round_bf16 ? launch_splat<true>(idx, col, acc, rows, num_texels,
-                                        to_fixed_scale, s)
-                   : launch_splat<false>(idx, col, acc, rows, num_texels,
-                                         to_fixed_scale, s);
-    if (err != 0) return err;
-  }
-  const int n = 3 * num_texels;
-  fixed_finish_kernel<kAdd><<<blocks_for(n), kThreads, 0, s>>>(
-      acc, n, from_fixed, out);
-  return static_cast<int>(cudaGetLastError());
+  unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
+  return round_bf16
+             ? splat_entry<kAdd>(idx, col, a, out, rows, num_texels,
+                                 FixedSlot<true>{to_fixed_scale}, from_fixed,
+                                 stream)
+             : splat_entry<kAdd>(idx, col, a, out, rows, num_texels,
+                                 FixedSlot<false>{to_fixed_scale},
+                                 from_fixed, stream);
 }
 
 }  // namespace
@@ -365,23 +393,23 @@ int fused_splat_entry(const int* idx, const float* col, long long* acc,
 // C entry points, loaded with ctypes. Each splats `rows` rows on `stream`
 // and returns the CUDA error code (0 on success).
 //
-// acc: int32 [num_texels, 3] scratch, zeroed here; out = acc * scale.
+// acc: int32 [>= num_texels * 3] scratch, zero on entry and left zero;
+// inv_s = f32(1 / scale). fm_fused_splat_i8 writes the f32 [num_texels, 3]
+// increment acc * scale to `out`; fm_fused_splat_i8_add adds it into the
+// lightmap `lm`.
 extern "C" int fm_fused_splat_i8(const int* idx, const float* col, int* acc,
                                  float* out, int rows, int num_texels,
                                  float inv_s, float scale, void* stream) {
-  if (num_texels <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n = 3 * num_texels;
-  cudaError_t err = cudaMemsetAsync(acc, 0, sizeof(int) * n, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows > 0) {
-    fused_splat_i8_kernel<<<blocks_for(rows), kThreads, 0, s>>>(
-        idx, col, rows, num_texels, inv_s, acc);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  descale_kernel<<<blocks_for(n), kThreads, 0, s>>>(acc, n, scale, out);
-  return static_cast<int>(cudaGetLastError());
+  return splat_entry<false>(idx, col, acc, out, rows, num_texels,
+                            I8Slot{inv_s}, scale, stream);
+}
+
+extern "C" int fm_fused_splat_i8_add(const int* idx, const float* col,
+                                     int* acc, float* lm, int rows,
+                                     int num_texels, float inv_s, float scale,
+                                     void* stream) {
+  return splat_entry<true>(idx, col, acc, lm, rows, num_texels,
+                           I8Slot{inv_s}, scale, stream);
 }
 
 // acc: int64 [>= num_texels * 3] scratch, zero on entry and left zero;
@@ -406,13 +434,25 @@ extern "C" int fm_fused_splat_add(const int* idx, const float* col,
 }
 
 // The accumulator instance (0: arena, 1: paged) that fm_fused_splat and
-// fm_fused_splat_add take for an arena of num_texels texels, and its
-// dynamic shared memory in bytes; no launch, no stream.
-extern "C" int fm_fused_splat_plan(int num_texels, int* instance,
-                                   int* shared_bytes) {
+// fm_fused_splat_add (int64 slots), or fm_fused_splat_i8 and
+// fm_fused_splat_i8_add (int32 slots, fm_fused_splat_i8_plan), take for
+// an arena of num_texels texels, and its dynamic shared memory in bytes;
+// no launch, no stream.
+static int plan(int num_texels, size_t slot, int* instance,
+                int* shared_bytes) {
   int cap;
   size_t smem;
-  *instance = static_cast<int>(accumulator_of(num_texels, &cap, &smem));
+  *instance = static_cast<int>(accumulator_of(num_texels, slot, &cap, &smem));
   *shared_bytes = static_cast<int>(smem);
   return 0;
+}
+
+extern "C" int fm_fused_splat_plan(int num_texels, int* instance,
+                                   int* shared_bytes) {
+  return plan(num_texels, sizeof(long long), instance, shared_bytes);
+}
+
+extern "C" int fm_fused_splat_i8_plan(int num_texels, int* instance,
+                                      int* shared_bytes) {
+  return plan(num_texels, sizeof(int), instance, shared_bytes);
 }

@@ -184,6 +184,30 @@ def trace_deposits_narrow(
 trace_deposits_narrow.launches = 0
 
 
+def narrow_instance(n_rects: int, max_depth: int, device="cuda"):
+    """(instance, shared bytes) of row 11's kernel for a table of n_rects
+    rects and max_depth bounces on CUDA device `device`, as
+    csrc/trace_deposits_narrow.cu chooses them
+    (fm_trace_deposits_narrow_plan): "staged" (the table and the
+    deposits' staging in shared memory, where the staging costs no block
+    a SM), "table" (the table alone) or "device" (the table read from
+    device memory). It asks the kernel library, so it needs the CUDA
+    build; a CUDA error raises."""
+    import ctypes
+
+    from ..utils.cuda_build import load_library
+
+    inst, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = load_library().fm_trace_deposits_narrow_plan(
+            int(n_rects), int(max_depth), ctypes.byref(inst),
+            ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"fm_trace_deposits_narrow_plan: CUDA error "
+                           f"{err}")
+    return ("staged", "table", "device")[inst.value], smem.value
+
+
 # --------------------------------------------------------------------------
 # host side
 # --------------------------------------------------------------------------

@@ -8,7 +8,9 @@ dispatch engines/photon_pallas_wide._splat (:1527-1568), which
 tensors and run the plain versions for CPU tensors only:
 
 - `fused_splat_i8`: the dithered 7-bit grid, an exact int32 sum, de-scaled
-  once; equal to the JAX package's bit for bit.
+  once; equal to the JAX package's bit for bit. `fused_splat_i8_add` adds
+  that sum into a lightmap in the pass that de-scales it (what
+  `splat_stream` calls): `lm += fused_splat_i8(...)` bit for bit.
 - `fused_splat`: colors rounded to bf16 once, summed in f32. The kernel sums
   64-bit fixed-point integers (see the source note), so two runs give the
   same bits; the plain version sums in `index_add_`'s f32 order, and
@@ -145,28 +147,32 @@ def fused_splat_fixed_plain(idx, col, num_texels: int, total_bound: float,
     return acc.to(torch.float32) * float(np.float32(from_fixed))
 
 
-def splat_accumulator(num_texels: int):
-    """(instance, shared bytes) of the f32 stream splat's kernel for an
-    arena of num_texels texels, as csrc/splat_stream.cu chooses them
-    (fm_fused_splat_plan): "arena" when the int64 [T, 3] sums fit in a
-    block's shared memory, else "paged". It asks the kernel library, so it
-    needs the CUDA build."""
+def splat_accumulator(num_texels: int, i8: bool = False):
+    """(instance, shared bytes) of the f32 stream splat's kernel (with
+    `i8`, of the 7-bit one's) for an arena of num_texels texels, as
+    csrc/splat_stream.cu chooses them (fm_fused_splat_plan,
+    fm_fused_splat_i8_plan): "arena" when the int64 (int32) [T, 3] sums fit
+    in a block's shared memory, else "paged". It asks the kernel library,
+    so it needs the CUDA build."""
     import ctypes
 
     from ..utils.cuda_build import load_library
 
     inst, smem = ctypes.c_int(), ctypes.c_int()
-    load_library().fm_fused_splat_plan(int(num_texels), ctypes.byref(inst),
-                                       ctypes.byref(smem))
+    lib = load_library()
+    plan = lib.fm_fused_splat_i8_plan if i8 else lib.fm_fused_splat_plan
+    plan(int(num_texels), ctypes.byref(inst), ctypes.byref(smem))
     return ("arena", "paged")[inst.value], smem.value
 
 
-# One zeroed int64 scratch per device and stream for the f32 stream splat,
-# kept across calls as a cache of device memory: the kernel needs it zero
-# on entry and every launch of fm_fused_splat(_add) leaves it zero, so no
+# One zeroed scratch per device and stream for each stream splat, int64 for
+# the f32 splat, int32 for the 7-bit one, kept across calls as a cache of
+# device memory: the kernels need it zero on entry and every launch of
+# fm_fused_splat(_add) and fm_fused_splat_i8(_add) leaves it zero, so no
 # call clears it. Calls on one stream run in order; calls on two streams of
 # a device may run at once, so each stream has its own.
 _fixed_scratch = {}
+_i8_scratch = {}
 
 
 def _scratch_key(dev):
@@ -174,12 +180,13 @@ def _scratch_key(dev):
     return dev, torch.cuda.current_stream(dev).cuda_stream
 
 
-def _scratch(dev, n: int) -> torch.Tensor:
+def _scratch(dev, n: int, cache=_fixed_scratch,
+             dtype=torch.int64) -> torch.Tensor:
     key = _scratch_key(dev)
-    buf = _fixed_scratch.get(key)
+    buf = cache.get(key)
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(n, dtype=torch.int64, device=dev)
-        _fixed_scratch[key] = buf
+        buf = torch.zeros(n, dtype=dtype, device=dev)
+        cache[key] = buf
     return buf
 
 
@@ -203,46 +210,94 @@ def _check_stream(idx, col, num_texels) -> int:
     return idx.shape[0]
 
 
+def _check_i8(idx, col, num_texels) -> int:
+    """_check_stream, and every partial sum of the int32 accumulator (127
+    a row at most) below 2^31."""
+    R = _check_stream(idx, col, num_texels)
+    if 127 * R >= 2**31:
+        raise ValueError(f"{R} rows can overflow the int32 accumulator")
+    return R
+
+
+def _check_lm(lm, idx):
+    if (lm.dim() != 2 or lm.shape[1] != 3 or lm.dtype != torch.float32
+            or not lm.is_contiguous() or lm.device != idx.device):
+        raise ValueError(f"lm must be contiguous float32 [T, 3] on "
+                         f"{idx.device}, got {lm.dtype} "
+                         f"{tuple(lm.shape)} on {lm.device}")
+
+
+def _launch_scratch(entry, out, idx, col, R, num_texels, *args,
+                    cache=_fixed_scratch, dtype=torch.int64):
+    """Launch a stream splat's entry point `entry` on the zeroed scratch
+    (`cache`, of `dtype`) of the device's current stream; on a failed
+    launch the scratch is dropped (a later call makes a zeroed one) and the
+    error raised."""
+    dev = idx.device
+    acc = _scratch(dev, 3 * int(num_texels), cache, dtype)
+    try:
+        launch(entry, dev, idx.data_ptr(), col.data_ptr(), acc.data_ptr(),
+               out.data_ptr(), R, int(num_texels), *args)
+    except RuntimeError:
+        cache.pop(_scratch_key(dev), None)
+        raise
+
+
+def _launch_i8(entry, out, idx, col, R, num_texels, scale):
+    _launch_scratch(entry, out, idx, col, R, num_texels,
+                    np.float32(1.0 / scale), np.float32(scale),
+                    cache=_i8_scratch, dtype=torch.int32)
+    fused_splat_i8.launches += 1
+
+
 def fused_splat_i8(idx: torch.Tensor, col: torch.Tensor, num_texels: int,
                    scale: float) -> torch.Tensor:
     """[num_texels, 3] f32 sum of the stream on the 7-bit grid of spacing
     `scale` (every color must lie in [0, 127 * scale]).
 
     CUDA tensors launch `csrc/splat_stream.cu` (the port of
-    splat_pallas.fused_splat_i8); a failed launch raises. CPU tensors run
-    the plain version."""
-    R = _check_stream(idx, col, num_texels)
-    if 127 * R >= 2**31:
-        raise ValueError(f"{R} rows can overflow the int32 accumulator")
+    splat_pallas.fused_splat_i8, exact integer sums: equal to
+    `fused_splat_i8_plain` bit for bit); a failed launch raises. CPU
+    tensors run the plain version."""
+    R = _check_i8(idx, col, num_texels)
     if idx.device.type == "cpu":
         return fused_splat_i8_plain(idx, col, num_texels, scale)
-    dev = idx.device
-    acc = torch.empty((int(num_texels), 3), dtype=torch.int32, device=dev)
-    out = torch.empty((int(num_texels), 3), dtype=torch.float32, device=dev)
-    launch("fm_fused_splat_i8", dev, idx.data_ptr(), col.data_ptr(),
-           acc.data_ptr(), out.data_ptr(), R, int(num_texels),
-           np.float32(1.0 / scale), np.float32(scale))
-    fused_splat_i8.launches += 1
+    out = torch.empty((int(num_texels), 3), dtype=torch.float32,
+                      device=idx.device)
+    _launch_i8("fm_fused_splat_i8", out, idx, col, R, num_texels, scale)
     return out
 
 
 fused_splat_i8.launches = 0
 
 
+def fused_splat_i8_add(lm: torch.Tensor, idx: torch.Tensor,
+                       col: torch.Tensor, scale: float) -> torch.Tensor:
+    """Add the stream's `fused_splat_i8` sum into the f32 lightmap `lm`
+    [T, 3] in place, bit for bit `lm += fused_splat_i8(idx, col, T,
+    scale)`; returns `lm`.
+
+    CUDA tensors launch the same kernel as `fused_splat_i8`, whose
+    finishing pass adds f32(sum) * scale into `lm`; its launches count
+    there and here. A failed launch raises. CPU tensors add the plain
+    version's sum."""
+    R = _check_i8(idx, col, lm.shape[0])
+    _check_lm(lm, idx)
+    if idx.device.type == "cpu":
+        lm += fused_splat_i8_plain(idx, col, lm.shape[0], scale)
+        return lm
+    _launch_i8("fm_fused_splat_i8_add", lm, idx, col, R, lm.shape[0], scale)
+    fused_splat_i8_add.launches += 1
+    return lm
+
+
+fused_splat_i8_add.launches = 0
+
+
 def _launch_fixed(entry, out, idx, col, R, num_texels, total_bound, bf16):
-    """Launch the f32 stream splat's entry point `entry` on the zeroed
-    scratch of the device's current stream; on a failed launch the scratch
-    is dropped (a later call makes a zeroed one) and the error raised."""
     to_fixed, from_fixed = fixed_point_scale(total_bound)
-    dev = idx.device
-    acc = _scratch(dev, 3 * int(num_texels))
-    try:
-        launch(entry, dev, idx.data_ptr(), col.data_ptr(), acc.data_ptr(),
-               out.data_ptr(), R, int(num_texels), int(bf16),
-               np.float32(to_fixed), np.float32(from_fixed))
-    except RuntimeError:
-        _fixed_scratch.pop(_scratch_key(dev), None)
-        raise
+    _launch_scratch(entry, out, idx, col, R, num_texels, int(bf16),
+                    np.float32(to_fixed), np.float32(from_fixed))
     fused_splat.launches += 1
 
 
@@ -289,11 +344,7 @@ def fused_splat_add(lm: torch.Tensor, idx: torch.Tensor, col: torch.Tensor,
     count there), whose finishing pass adds f32(sum) * 2^-k into `lm`; a
     failed launch raises. CPU tensors add the plain version's sum."""
     R = _check_stream(idx, col, lm.shape[0])
-    if (lm.dim() != 2 or lm.shape[1] != 3 or lm.dtype != torch.float32
-            or not lm.is_contiguous() or lm.device != idx.device):
-        raise ValueError(f"lm must be contiguous float32 [T, 3] on "
-                         f"{idx.device}, got {lm.dtype} "
-                         f"{tuple(lm.shape)} on {lm.device}")
+    _check_lm(lm, idx)
     if idx.device.type == "cpu":
         lm += fused_splat(idx, col, lm.shape[0], total_bound, bf16)
         return lm
@@ -310,7 +361,7 @@ def splat_stream(lm: torch.Tensor, idx: torch.Tensor, col: torch.Tensor,
     colors. Returns `lm`."""
     mode = cfg.splat
     if mode == "fused_i8":
-        lm += fused_splat_i8(idx, col, lm.shape[0], splat_color_scale(cfg))
+        fused_splat_i8_add(lm, idx, col, splat_color_scale(cfg))
     elif mode in BF16_MODES + F32_MODES:
         fused_splat_add(lm, idx, col, stream_bound(cfg),
                         bf16=mode in BF16_MODES)

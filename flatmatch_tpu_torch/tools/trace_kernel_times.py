@@ -21,12 +21,16 @@ the host microseconds per call of
   the counter-hash and threefry-uniforms renders with the 7-bit and the
   f32 splat, the two stream traces, the diff stream of `fit --splat
   scatter`, the diff forwards and the two folds), per 131072-photon batch;
+- the narrow kernel of the general route (row 11,
+  `trace_deposits_narrow`) on batch 0 of the scene turned 30 degrees about
+  z (chip_smoke.rotated_scene), per 131072-photon batch;
 - the stream splats on that batch's 1M-row stream: row 15
-  (`fused_splat_i8`), row 16 with bf16 colors (`fused_splat`) and f32
-  colors (`fused_splat_f32`), and row 16 adding into a lightmap
-  (`fused_splat_add`; a checkout without that entry adds `fused_splat`'s
-  increment with torch, as its callers did; `fused_splat_then_add` always
-  does that);
+  (`fused_splat_i8`, and adding into a lightmap, `fused_splat_i8_add`; a
+  checkout without that entry adds `fused_splat_i8`'s increment with
+  torch, as its caller did), row 16 with bf16 colors (`fused_splat`) and
+  f32 colors (`fused_splat_f32`), and row 16 adding into a lightmap
+  (`fused_splat_add`; likewise; `fused_splat_then_add` always adds with
+  torch);
 - the threefry draws: the scene's last photon batch flat (`threefry_flat`)
   and transposed to [U, B] (`threefry_t`), and radiosity's first chunk of
   the scene's first wall (`threefry_radiosity`);
@@ -43,12 +47,13 @@ card. With --placements K, each kernel that reads the uniforms is also
 timed (the median of ROUNDS runs) on K copies of them at other addresses,
 all held at once, to show how far its time depends on where they lie.
 --kernels times and digests only the named kernels. With --routes, the
-SHA-256 of whole routes that run the stream splat and the threefry draws
-(`routes`: renders of mini through the stream tiers, rotated mini through
-the narrow and the general engine, a short `scatter` fit's losses and
-parameters) and the wall seconds of a render of mini tiled 4x4 and turned
-30 degrees (the narrow route) are added. It needs a CUDA device and
-imports no JAX.
+SHA-256 of whole routes that run the stream splats, the narrow kernel and
+the threefry draws (`routes`: renders of mini through the stream tiers,
+`--splat fused_i8` among them, rotated mini through the narrow and the
+general engine, a short `scatter` fit's losses and parameters) and the
+wall seconds of three renders (rotated mini and mini tiled 4x4 and turned
+30 degrees through the narrow route, mini through `--splat fused_i8`) are
+added. It needs a CUDA device and imports no JAX.
 """
 import hashlib
 import json
@@ -70,7 +75,8 @@ STREAM_REPS = 100
 ROUNDS = 5
 
 # ablations: (file under flatmatch_tpu_torch/, text, replacement) edits
-# that undo one design choice of row 16 or of the threefry kernel
+# that undo one design choice of row 11, 15 or 16 or of the threefry
+# kernel
 _TF_FLAT = """  const uint32_t stride = gridDim.x * kTfThreads;
   for (uint32_t j = blockIdx.x * kTfThreads + threadIdx.x; j < m;
        j += stride) {
@@ -84,7 +90,88 @@ _TF_T = """  for (int p = blockIdx.x * kTfThreads + threadIdx.x; p < rows;
       *o = uniform_at(k, 0u, ctr + static_cast<uint32_t>(c));
     }
   }"""
+_NARROW = "csrc/trace_deposits_narrow.cu"
+_SPLAT = "csrc/splat_stream.cu"
+# row 15 as the first port ran it, one thread a row and an int32 atomic in
+# L2 per non-zero channel (on the zeroed scratch, with the new finish)
+_I8_ROWS = """__global__ void __launch_bounds__(kThreads)
+i8_row_kernel(const int* __restrict__ idx, const float* __restrict__ col,
+              int rows, int num_texels, float inv_s, int* __restrict__ acc) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const int t = idx[r];
+  if (static_cast<unsigned>(t) >= static_cast<unsigned>(num_texels)) return;
+  const uint32_t key = static_cast<uint32_t>(r) * 3u;
+  for (int ch = 0; ch < 3; ++ch) {
+    const int q = quant(col[3 * static_cast<size_t>(r) + ch], inv_s,
+                        key + static_cast<uint32_t>(ch));
+    if (q) atomicAdd(acc + 3 * t + ch, q);
+  }
+}
+
+int launch_splat(const int* idx, const float* col, int* acc, int rows,
+                 int num_texels, I8Slot slot, cudaStream_t s) {
+  i8_row_kernel<<<blocks_for(rows), kThreads, 0, s>>>(
+      idx, col, rows, num_texels, slot.inv_s, acc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Splat, then finish into"""
 VARIANTS = {
+    # row 11: the [18, N] rows staged as they are, fifteen scalar loads a
+    # rect test
+    "narrow_scalar": [
+        (_NARROW, "  float* tex = recs + 16 * n;\n"
+                  "  for (int j = threadIdx.x; j < n; j += blockDim.x) {",
+         "  float* tex = recs + G_WT * n;\n"
+         "  for (int i = threadIdx.x; i < F_GEN * n; i += blockDim.x) {\n"
+         "    recs[i] = t[i];\n  }\n"
+         "  for (int j = threadIdx.x; false; j += blockDim.x) {"),
+        (_NARROW, """    a = rec[4 * j];
+    b = rec[4 * j + 1];
+    c = rec[4 * j + 2];
+    h = rec[4 * j + 3];""",
+         """    const float* s = reinterpret_cast<const float*>(rec);
+    a = make_float4(s[G_N * n + j], s[(G_N + 1) * n + j],
+                    s[(G_N + 2) * n + j], s[G_NOFF * n + j]);
+    b = make_float4(s[G_POS * n + j], s[(G_POS + 1) * n + j],
+                    s[(G_POS + 2) * n + j], s[G_WLEN * n + j]);
+    c = make_float4(s[G_WU * n + j], s[(G_WU + 1) * n + j],
+                    s[(G_WU + 2) * n + j], s[G_HLEN * n + j]);
+    h = make_float4(s[G_HU * n + j], s[(G_HU + 1) * n + j],
+                    s[(G_HU + 2) * n + j], s[G_BASE * n + j]);""")],
+    # row 11's shared-memory loop unrolled 1, 2 or 4 times (the design: 8)
+    **{f"narrow_unroll{k}": [(_NARROW, "static constexpr int kUnroll = 8;",
+                              f"static constexpr int kUnroll = {k};")]
+       for k in (1, 2, 4)},
+    # row 11's device-memory loop unrolled by 2 (the design: 1)
+    "narrow_device_unroll2": [(_NARROW, "static constexpr int kUnroll = 1;",
+                               "static constexpr int kUnroll = 2;")],
+    # row 11 skipping the division and the projections where denom < 0
+    # fails (the same bits)
+    "narrow_gated": [
+        (_NARROW, "        const float pn = px * a.x + py * a.y + pz * a.z;",
+         "        if (!(denom < 0.0f)) continue;\n"
+         "        const float pn = px * a.x + py * a.y + pz * a.z;")],
+    # row 11 storing each deposit where it lies, never staged
+    "narrow_direct": [(_NARROW, "  if (with >= without) {", "  if (false) {")],
+    # row 11 staging wherever table and staging fit, blocks or not
+    "narrow_staged": [(_NARROW, "  if (with >= without) {", "  if (true) {")],
+    # row 11 staging and storing the whole block's deposits together
+    "narrow_stage_block": [
+        (_NARROW, "constexpr int kGroup = 32;", "constexpr int kGroup = 256;"),
+        (_NARROW, "    __syncwarp();", "    __syncthreads();")],
+    # row 15 one thread a row, its atomics in L2
+    "i8_rows": [(_SPLAT, "// Splat, then finish into", _I8_ROWS)],
+    # the stream splats at two blocks a SM (row 15's int32 arena of mini
+    # fits twice in an SM; row 16's does not)
+    "splat_two_a_sm": [
+        (_SPLAT, "__launch_bounds__(kSplatThreads, 1)",
+         "__launch_bounds__(kSplatThreads, 2)"),
+        (_SPLAT, "  const int most = sm_count();",
+         "  const int most = 2 * sm_count();"),
+        (_SPLAT, "constexpr int kSplatMinRows = 8192;",
+         "constexpr int kSplatMinRows = 4096;")],
     **{f"splat_blocks{n}": [("csrc/splat_stream.cu", "std::min(most, want)",
                              f"std::min({n}, want)")]
        for n in (16, 32, 64, 96)},
@@ -234,13 +321,14 @@ def kernel_calls(pw, prender, cfg, f, gc, ev, seed, u_t, alb, inv,
 
 def stream_calls(sp, threefry, cfg, rad, idx, col, T, gb, chunk, lm0):
     """name -> call of the stream splats on one batch's stream and of the
-    threefry draws; `fused_splat_add` adds into a copy of lm0 made once,
-    so its digest is of lm0 plus one increment (each timed call adds one
-    more)."""
+    threefry draws; `fused_splat_add` and `fused_splat_i8_add` add into
+    copies of lm0 made once, so their digests are of lm0 plus one
+    increment (each timed call adds one more)."""
     import math
 
     bound = sp.stream_bound(cfg)
-    lm, lm2 = lm0.clone(), lm0.clone()
+    scale = sp.splat_color_scale(cfg)
+    lm, lm2, lm8 = lm0.clone(), lm0.clone(), lm0.clone()
     if hasattr(sp, "fused_splat_add"):
         def add():
             return sp.fused_splat_add(lm, idx, col, bound)
@@ -248,6 +336,13 @@ def stream_calls(sp, threefry, cfg, rad, idx, col, T, gb, chunk, lm0):
         def add():
             lm.add_(sp.fused_splat(idx, col, T, bound))
             return lm
+    if hasattr(sp, "fused_splat_i8_add"):
+        def add_i8():
+            return sp.fused_splat_i8_add(lm8, idx, col, scale)
+    else:
+        def add_i8():
+            lm8.add_(sp.fused_splat_i8(idx, col, T, scale))
+            return lm8
     key = threefry.fold_in(threefry.prng_key(cfg.seed), gb)
     U = 4 + 3 * int(cfg.max_depth)
     B = cfg.photons_per_batch
@@ -256,8 +351,8 @@ def stream_calls(sp, threefry, cfg, rad, idx, col, T, gb, chunk, lm0):
     rshape = (chunk, int(rad.rays_per_texel), 2)
     assert math.prod(rshape) > 0
     return {
-        "fused_splat_i8": lambda: sp.fused_splat_i8(
-            idx, col, T, sp.splat_color_scale(cfg)),
+        "fused_splat_i8": lambda: sp.fused_splat_i8(idx, col, T, scale),
+        "fused_splat_i8_add": add_i8,
         "fused_splat": lambda: sp.fused_splat(idx, col, T, bound),
         "fused_splat_f32": lambda: sp.scatter_splat(idx, col, T, bound),
         "fused_splat_add": add,
@@ -277,15 +372,17 @@ UNIFORM_KERNELS = ("trace_deposits_wide", "trace_splat_wide_i8",
                    "trace_fold_wide")
 
 
-def routes(dev, mini, tiled4, rotated_scene) -> dict:
-    """SHA-256 of whole routes that run row 16 and the threefry draws, on
-    the checkout imported: the photon arena of mini through `--splat fused`
-    and `scatter` (device RNG) and threefry with `fused`, of mini turned 30
-    degrees at the library's defaults (the narrow route) and through
-    `photon_xla` at a tenth of the samples (the general engine), and the
-    losses, parameters and lightmap of a 3-step `scatter` fit of mini; and
-    the wall seconds of a render of the 4x4 tiling turned 30 degrees (the
-    narrow route, once, after the others)."""
+def routes(dev, mini, tiled4, rotated_scene):
+    """SHA-256 of whole routes that run rows 11, 15 and 16 and the threefry
+    draws, on the checkout imported: the photon arena of mini through
+    `--splat fused`, `fused_i8` and `scatter` (device RNG) and threefry
+    with `fused`, of mini turned 30 degrees at the library's defaults (the
+    narrow route) and through `photon_xla` at a tenth of the samples (the
+    general engine), and the losses, parameters and lightmap of a 3-step
+    `scatter` fit of mini; and the wall seconds of renders of rotated mini
+    and of mini through `--splat fused_i8` (each run again after its
+    digest's run) and of the 4x4 tiling turned 30 degrees (the narrow
+    route, once, after the others)."""
     import dataclasses
 
     import numpy as np
@@ -311,6 +408,8 @@ def routes(dev, mini, tiled4, rotated_scene) -> dict:
             scene, photon(device_rng=True, splat="fused"), dev),
         "render_mini_scatter": run_engine(
             scene, photon(device_rng=True, splat="scatter"), dev),
+        "render_mini_fused_i8": run_engine(
+            scene, photon(device_rng=True, splat="fused_i8"), dev),
         "render_mini_threefry_fused": run_engine(
             scene, photon(device_rng=False, splat="fused"), dev),
         "render_rotated_mini": run_engine(rscene, base, dev),
@@ -333,14 +432,22 @@ def routes(dev, mini, tiled4, rotated_scene) -> dict:
     res = {k: digest(tuple(torch.from_numpy(np.ascontiguousarray(a))
                            for a in (v if isinstance(v, tuple) else (v,))))
            for k, v in out.items()}
+    seconds = {}
+
+    def wall(key, sc, c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm = run_engine(sc, c, dev)
+        torch.cuda.synchronize()
+        seconds[key] = time.perf_counter() - t0
+        return lm
+
+    wall("render_rotated_mini", rscene, base)
+    wall("render_mini_fused_i8", scene, photon(device_rng=True,
+                                               splat="fused_i8"))
     scene4, _ = compile_scene(str(tiled4), 30.0, base)
-    rscene4 = rotated_scene(scene4, 30)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    lm4 = run_engine(rscene4, base, dev)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    res["render_rotated_4x4"] = digest(torch.from_numpy(lm4))
+    res["render_rotated_4x4"] = digest(torch.from_numpy(wall(
+        "render_rotated_4x4", rotated_scene(scene4, 30), base)))
     return res, seconds
 
 
@@ -355,10 +462,11 @@ def measure(root: str, names, placements=0, kernels=None,
 
     from flatmatch_tpu_torch.config import DEFAULT_CONFIG
     from flatmatch_tpu_torch.diff import render as prender
+    from flatmatch_tpu_torch.engines import photon_narrow as pn
     from flatmatch_tpu_torch.engines import photon_wide as pw
     from flatmatch_tpu_torch.ops import rng, splat as sp, threefry
     from flatmatch_tpu_torch.ops.aa_scene import pack_aa
-    from flatmatch_tpu_torch.ops.device_scene import pack_emitters
+    from flatmatch_tpu_torch.ops.device_scene import pack_emitters, pack_rects
     from flatmatch_tpu_torch.render import compile_scene
     from flatmatch_tpu_torch.scene.rectangle import num_tiles
 
@@ -406,6 +514,15 @@ def measure(root: str, names, placements=0, kernels=None,
             ev, seed = pw.emitter_vector(em, 0), rng.batch_seed(cfg.seed, 0)
             fns = kernel_calls(pw, prender, cfg, f, gc, ev, seed, u_t, alb,
                                inv, fixed, g, T, B)
+            # row 11 on the scene turned 30 degrees (no axis-aligned table)
+            rsc = smoke.rotated_scene(scene, 30)
+            table = pn.narrow_table(pack_rects(rsc.walls, device=dev))
+            rev = pw.emitter_vector(pack_emitters(
+                rsc, cfg.samples_per_area, cfg.window_color, cfg.light_color,
+                device=dev), 0)
+            fns["trace_deposits_narrow"] = (
+                lambda table=table, rev=rev: pn.trace_deposits_narrow(
+                    table, rev, u_t, B, cfg))
             idx, col = pw.trace_deposits_wide_rng(f, gc, ev, seed, B, B, cfg)
             last = sum(-(-int(n) // B) for n in em.counts if n > 0) - 1
             chunk = min(int(DEFAULT_CONFIG.radiosity.texels_per_chunk),
@@ -439,7 +556,7 @@ def measure(root: str, names, placements=0, kernels=None,
                 out[f"{name}_placements"] = times
                 del copies
         if with_routes:
-            out["sha256"]["routes"], out["rotated_4x4_render_s"] = routes(
+            out["sha256"]["routes"], out["render_wall_s"] = routes(
                 dev, scenes["mini"], scenes["4x4"], smoke.rotated_scene)
     return out
 

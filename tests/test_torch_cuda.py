@@ -655,6 +655,110 @@ def test_accumulator_instance_follows_the_arena_size(dev):
     assert sp.splat_accumulator(96384) == ("paged", 229648)
 
 
+def _hold_row15(dev, idx, col, T, scale):
+    """Row 15 (fused_splat_i8, and fused_splat_i8_add into a lightmap) on a
+    stream against fused_splat_i8_plain bit for bit, the device's scratch
+    zero after each call, and the launches counted: two of row 15's
+    kernel, one of them through the adding entry."""
+    from flatmatch_tpu_torch.ops import splat as sp
+
+    lm0 = torch.from_numpy(np.random.RandomState(15).rand(T, 3).astype(
+        np.float32)).to(dev)
+    want = sp.fused_splat_i8_plain(idx, col, T, scale)
+    before = (sp.fused_splat_i8.launches, sp.fused_splat_i8_add.launches)
+    got = sp.fused_splat_i8(idx, col, T, scale)
+    assert not bool(sp._i8_scratch[sp._scratch_key(idx.device)].any())
+    lm = sp.fused_splat_i8_add(lm0.clone(), idx, col, scale)
+    torch.cuda.synchronize()
+    assert (sp.fused_splat_i8.launches, sp.fused_splat_i8_add.launches) \
+        == (before[0] + 2, before[1] + 1)
+    assert not bool(sp._i8_scratch[sp._scratch_key(idx.device)].any())
+    assert torch.equal(got, want)
+    assert torch.equal(lm, lm0 + want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,accumulator", [
+    ("mini", "arena"), ("4x4", "paged"), ("13x13", "paged")])
+def test_row15_equals_its_plain_version_bit_for_bit(dev, tmp_path, name,
+                                                    accumulator):
+    """Row 15's kernel on batch 0's 1M-row stream of mini (the whole int32
+    arena in shared memory) and of the 4x4 and 13x13 tilings (the paged
+    accumulator) equals fused_splat_i8_plain bit for bit, writing the
+    increment and adding into a lightmap."""
+    from flatmatch_tpu_torch.ops import splat as sp
+
+    idx, col, T, _ = _tiled_stream(name, dev, tmp_path)
+    assert sp.splat_accumulator(T, i8=True)[0] == accumulator
+    scale = sp.splat_color_scale(DEFAULT_CONFIG.photon)
+    _hold_row15(dev, idx, col, T, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [6008, 19370, 1 << 20])
+def test_row15_on_streams_that_stress_its_accumulators(dev, T):
+    """Seeded streams that no render makes: ids spread over the whole
+    arena (on 2^20 texels every block meets more pages than it holds, so
+    rows are refused to device memory, and pages share directory entries;
+    19,370 texels is the largest int32 arena), ids out of range, zero rows,
+    colors past the grid's ends, a stream whose rows are not a multiple of
+    four, one that is not 16-byte aligned (the scalar loads, keyed by their
+    own rows) and an empty stream; all equal fused_splat_i8_plain bit for
+    bit."""
+    rs = np.random.RandomState(T % 9973)
+    R = 300_003
+    scale = 18.0 / 127.0
+    idx = torch.from_numpy(rs.randint(-3, T + 3, R).astype(np.int32)).to(dev)
+    col = rs.uniform(-0.5, 18.5, (R, 3)).astype(np.float32)
+    col[rs.rand(R) < 0.2] = 0.0
+    col = torch.from_numpy(col).to(dev)
+    _hold_row15(dev, idx, col, T, scale)
+    _hold_row15(dev, idx[1:], col[1:], T, scale)
+    _hold_row15(dev, idx[:0], col[:0], T, scale)
+
+
+@pytest.mark.cuda
+def test_row15_accumulator_instance_follows_the_arena_size(dev):
+    """The int32 arena while 12 T bytes fit in a block's 227 KB of shared
+    memory (up to 19,370 texels: mini's 6,008 take 72 KB), the paged one
+    past that (the 4x4 tiling's 96,384: the directory and 64 pages of 256
+    int32 texels)."""
+    from flatmatch_tpu_torch.ops import splat as sp
+
+    assert sp.splat_accumulator(6008, i8=True) == ("arena", 12 * 6008)
+    assert sp.splat_accumulator(19370, i8=True) == ("arena", 12 * 19370)
+    inst, smem = sp.splat_accumulator(19371, i8=True)
+    assert inst == "paged" and smem <= 232448
+    assert sp.splat_accumulator(96384, i8=True) == ("paged",
+                                                    8464 + 64 * 3072)
+    assert sp.splat_accumulator(96384) == ("paged", 229648)
+
+
+@pytest.mark.cuda
+def test_fused_splat_i8_add_raises_on_a_failed_launch(dev, monkeypatch):
+    """A CUDA error from fm_fused_splat_i8_add raises; no launch is
+    counted, the lightmap is not touched by a fallback, and the scratch is
+    dropped (the next call makes a zeroed one)."""
+    from flatmatch_tpu_torch.ops import splat as sp
+    from flatmatch_tpu_torch.utils import cuda_build
+
+    idx = torch.zeros(16, dtype=torch.int32, device=dev)
+    col = torch.ones((16, 3), device=dev)
+    lm = torch.zeros((4, 3), device=dev)
+    sp.fused_splat_i8_add(lm, idx, col, 0.1)
+    assert sp._scratch_key(idx.device) in sp._i8_scratch
+    kept = lm.clone()
+    cuda_build.load_library()
+    monkeypatch.setattr(cuda_build, "_lib", _FailingLibrary())
+    before = (sp.fused_splat_i8.launches, sp.fused_splat_i8_add.launches)
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        sp.fused_splat_i8_add(lm, idx, col, 0.1)
+    assert (sp.fused_splat_i8.launches,
+            sp.fused_splat_i8_add.launches) == before
+    assert sp._scratch_key(idx.device) not in sp._i8_scratch
+    assert torch.equal(lm, kept) and lm.sum().item() > 0
+
+
 @pytest.mark.cuda
 def test_stream_wrappers_refuse_bad_inputs(dev):
     from flatmatch_tpu_torch.ops import splat as sp
@@ -686,11 +790,16 @@ def test_stream_wrappers_refuse_bad_inputs(dev):
         with pytest.raises(ValueError):
             sp.fused_splat_add(torch.zeros((total_c, 3), device=dev), *bad,
                                100.0)
+        with pytest.raises(ValueError):
+            sp.fused_splat_i8_add(torch.zeros((total_c, 3), device=dev),
+                                  *bad, 0.1)
     for lm in (torch.zeros((total_c, 3)), torch.zeros((total_c, 3),
                                                       device=dev).double(),
                torch.zeros((3, total_c), device=dev).t()):
         with pytest.raises(ValueError):
             sp.fused_splat_add(lm, idx, col, 100.0)
+        with pytest.raises(ValueError):
+            sp.fused_splat_i8_add(lm, idx, col, 0.1)
 
 
 class _FailingLibrary:
@@ -1484,6 +1593,68 @@ def test_narrow_kernel_matches_plain(dev, deg, repeat):
     pidx, pcol = pn.trace_deposits_narrow_plain(table, ev, u_t.t(), nv,
                                                 CFG.photon)
     assert pcol.sum().item() > 0 and (col[nv:] == 0).all()
+    assert (idx == pidx).all(1).float().mean().item() >= 0.999
+    np.testing.assert_allclose(col.cpu().numpy(), pcol.cpu().numpy(),
+                               rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg", [0, 30])
+@pytest.mark.parametrize("repeat", [1, 400])
+def test_narrow_kernel_off_the_block_matches_plain(dev, deg, repeat):
+    """Row 11 with a batch that is not a multiple of its 256-photon block
+    (8,037: the last block and its last warp partial, so the staged stores
+    end mid-warp) and n_valid that is not one either (7,777), in both
+    table instances (repeat=400: the device-memory one): ids equal on
+    >= 99.9% of rows, colors within 1e-5, dead and absent rows as the
+    plain version has them, two runs bit-identical, and the two instances
+    equal."""
+    from flatmatch_tpu_torch.engines import photon_narrow as pn
+
+    B, nv = 8037, 7777
+    table, ev, u_t = _narrow_inputs(dev, deg, B)
+    small = pn.trace_deposits_narrow(table, ev, u_t, nv, CFG.photon)
+    if repeat > 1:
+        table = table.repeat_interleave(repeat, dim=1).contiguous()
+    idx, col = pn.trace_deposits_narrow(table, ev, u_t, nv, CFG.photon)
+    idx2, col2 = pn.trace_deposits_narrow(table, ev, u_t, nv, CFG.photon)
+    torch.cuda.synchronize()
+    assert idx.shape == (B, 8) and col.shape == (B, 24)
+    assert torch.equal(idx, idx2) and torch.equal(col, col2)
+    assert torch.equal(idx, small[0]) and torch.equal(col, small[1])
+    pidx, pcol = pn.trace_deposits_narrow_plain(table, ev, u_t.t(), nv,
+                                                CFG.photon)
+    assert pcol.sum().item() > 0
+    assert (idx[nv:] == 0).all() and (col[nv:] == 0).all()
+    assert (idx == pidx).all(1).float().mean().item() >= 0.999
+    np.testing.assert_allclose(col.cpu().numpy(), pcol.cpu().numpy(),
+                               rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_narrow_instances_follow_table_and_staging(dev):
+    """fm_trace_deposits_narrow_plan: a table past shared memory (5,200
+    rects) takes the device-memory instance and no shared memory; a depth
+    whose staging (16 bytes a photon and bounce, 256 photons) cannot sit
+    beside the table takes the table alone; otherwise the staging joins
+    the table where it costs no block a SM. A depth past the staging runs
+    and matches the plain version."""
+    from flatmatch_tpu_torch.engines import photon_narrow as pn
+
+    assert pn.narrow_instance(5200, 8, dev) == ("device", 0)
+    assert pn.narrow_instance(13, 57, dev) == ("table", 72 * 13)
+    inst, smem = pn.narrow_instance(13, 8, dev)
+    assert (inst, smem) in (("staged", 72 * 13 + 16 * 256 * 8),
+                            ("table", 72 * 13))
+    cfg = dataclasses.replace(CFG.photon, max_depth=57)
+    table, ev, _ = _narrow_inputs(dev, 30, 1000)
+    from flatmatch_tpu_torch.ops import threefry
+    u_t = threefry.batch_uniforms(CFG.photon.seed, 3, 1000, 4 + 3 * 57, dev,
+                                  transposed=True)
+    idx, col = pn.trace_deposits_narrow(table, ev, u_t, 999, cfg)
+    pidx, pcol = pn.trace_deposits_narrow_plain(table, ev, u_t.t(), 999,
+                                                cfg)
+    assert idx.shape == (1000, 57) and pcol.sum().item() > 0
     assert (idx == pidx).all(1).float().mean().item() >= 0.999
     np.testing.assert_allclose(col.cpu().numpy(), pcol.cpu().numpy(),
                                rtol=1e-5, atol=1e-7)

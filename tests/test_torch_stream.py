@@ -201,6 +201,73 @@ def test_fused_splat_i8_matches_jax(tables, jax_stream, jax_splats):
     np.testing.assert_array_equal(got, jax_splats["fused_i8"])
 
 
+def _seeded_stream(T, scale, seed=15):
+    """A numpy-seeded stream of the JAX stream's shape (so the interpret-
+    mode splat reuses its compile): ids over the arena, a fifth of the
+    rows zero, colors over the whole 7-bit grid and past its ends."""
+    rs = np.random.RandomState(seed)
+    idx = rs.randint(0, T, B * 8).astype(np.int32)
+    col = rs.uniform(-0.2, 128.2, (B * 8, 3)).astype(f32) * f32(scale)
+    col[rs.rand(B * 8) < 0.2] = 0.0
+    return idx, col
+
+
+@pytest.mark.parametrize("stream", ["jax_trace", "numpy_seeded"])
+def test_fused_splat_i8_add_matches_jax(tables, jax_stream, jax_splats,
+                                        stream):
+    """`fused_splat_i8_add` (the entry `splat_stream` takes for fused_i8)
+    on CPU tensors adds into a lightmap exactly what the JAX package's
+    fused_splat_i8 (interpret mode) sums: lm + that sum, bit for bit; on
+    the JAX trace's stream and on a numpy-seeded one. It launches
+    nothing."""
+    T = tables["total_c"]
+    scale = pw.splat_color_scale(CFG)
+    if stream == "jax_trace":
+        idx, col = jax_stream
+        want = jax_splats["fused_i8"]
+    else:
+        idx, col = _seeded_stream(T, scale)
+        with pltpu.force_tpu_interpret_mode():
+            want = np.array(splat_pallas.fused_splat_i8(
+                jnp.asarray(idx), jnp.asarray(col), T, scale=scale))
+    assert want.sum() > 0
+    lm0 = np.random.RandomState(16).rand(T, 3).astype(f32)
+    before = (psplat.fused_splat_i8.launches,
+              psplat.fused_splat_i8_add.launches)
+    lm = torch.from_numpy(lm0.copy())
+    got = psplat.fused_splat_i8_add(lm, torch.from_numpy(idx.copy()),
+                                    torch.from_numpy(col.copy()), scale)
+    assert got is lm
+    assert (psplat.fused_splat_i8.launches,
+            psplat.fused_splat_i8_add.launches) == before
+    np.testing.assert_array_equal(lm.numpy(), lm0 + want)
+    # the splat mode dispatch takes the same entry
+    lm2 = torch.from_numpy(lm0.copy())
+    cfg = dataclasses.replace(CFG, splat="fused_i8")
+    assert psplat.splat_stream(lm2, torch.from_numpy(idx.copy()),
+                               torch.from_numpy(col.copy()), cfg) is lm2
+    np.testing.assert_array_equal(lm2.numpy(), lm0 + want)
+
+
+def test_fused_splat_i8_add_refuses_bad_inputs():
+    """Bad streams (dtype, shape, layout, device) and bad lightmaps
+    (dtype, shape, layout, device) raise ValueError; nothing is added."""
+    idx = torch.zeros(8, dtype=torch.int32)
+    col = torch.zeros(8, 3)
+    lm = torch.zeros(4, 3)
+    for args in ((idx.long(), col), (idx, col.double()), (idx[:7], col),
+                 (idx, col[:, :2]), (idx, col.t().contiguous().t()),
+                 (idx, col.to("meta")), (idx.to("meta"), col.to("meta"))):
+        with pytest.raises(ValueError):
+            psplat.fused_splat_i8_add(lm, *args, 0.1)
+    for bad in (torch.zeros(4, 3, dtype=torch.float64), torch.zeros(4, 2),
+                torch.zeros(3, 4).t(), torch.zeros(4, 3, device="meta"),
+                torch.zeros(4)):
+        with pytest.raises(ValueError):
+            psplat.fused_splat_i8_add(bad, idx, col, 0.1)
+    assert lm.sum() == 0
+
+
 @pytest.mark.parametrize("mode", ["fused", "scatter"])
 def test_f32_splats_match_jax(tables, jax_stream, jax_splats, mode):
     """The same colors (bf16-rounded for fused) summed in another f32
