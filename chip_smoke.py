@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from flatmatch_tpu_torch/csrc and drives the port's
-ten groups of paths on the card:
+eleven groups of paths on the card:
 - the render: the production kernel against its plain PyTorch version,
   `tests/fixtures/mini.png` through the port's CLI at its defaults, the
   physics against the reference C engine's golden lightmap, and a 4x4
@@ -75,8 +75,19 @@ ten groups of paths on the card:
   1M-row stream of mini (the int32 arena), the 4x4 tiling and 13x13 (the
   paged accumulator) against fused_splat_i8_plain bit for bit, each with
   its device ms and host µs per call, share of the bound, registers,
-  shared bytes and blocks per SM (phase 38).
-The kernels line's times, and phases 37's and 38's, are device times
+  shared bytes and blocks per SM (phase 38);
+- the redesigned nearest-hit kernels (rows 12-14, the photon trace's rect
+  loop in csrc/trace_wide.cuh) as phases 12, 17 and 30 held them on mini,
+  the 4x4 tiling and, in their device-memory instances, mini tiled 13x13,
+  against their plain versions at phase 12's bands and rerun bit for bit,
+  with device ms and host µs per call, share of the bound, and the
+  instance, registers, shared bytes and blocks per SM that the library
+  reports, beside the 4x4 AO and radiosity walls; and the fold past its old cap of
+  6,752 rect slots on mini tiled 16x16 (two passes over slot ranges)
+  against its plain version, both draw sources, and one fit step there
+  (phase 39).
+The kernels line's times, and phases 12's, 17's, 30's and 37-39's
+kernel times, are device times
 (device_ms:
 the calls queued behind a device sleep, so that no host work hides in
 them); the phases' other times bracket a host loop of calls with events
@@ -220,6 +231,24 @@ INT32_OPS_PER_S = 128 * 132 * 1.98e9
 # and the stores are left out.
 GENERAL_RECT_TEST_INSTRUCTIONS = 48
 LANE_INSTR_PER_S = INT32_OPS_PER_S
+# The axis-aligned rect test of the nearest-hit kernels (rows 12-14; the
+# shared loop, csrc/trace_wide.cuh nearest_rect), counted from its source,
+# each FADD, FMUL, compare and select one instruction: 5 FADD (O - p, and
+# p + d * fac - c on each of u and v), 5 FMUL (* 1/d, d * fac and the scale
+# on each of u and v), 7 compares (the sign, fac >= 0, the four edges,
+# fac < best) and the 2 selects that keep the minimum and its column: 19,
+# at LANE_INSTR_PER_S. Per ray, AA_RAY_INSTRUCTIONS: the three reciprocals
+# (1.0f / d, each MUFU.RCP, its two FFMA steps and the two-instruction
+# check that guards its slow path in the SASS: 5) and the result:
+# aa_nearest the hit test, the winner's u and v (8), its texel (two
+# products, two floors, two subtractions, two minimums, three conversions,
+# the multiply-add: 12) and the id's select; nearest_distances the hit test
+# and the select of sky; ao_fused the weight's test, the origin (3 FMUL, 3
+# FADD), the hit test, the select of sky, the product and the sum. The
+# table's loads, the loop control and the stores are left out.
+AA_RECT_TEST_INSTRUCTIONS = 19
+AA_RAY_INSTRUCTIONS = {"aa_nearest": 15 + 22, "nearest_distances": 15 + 2,
+                       "ao_fused": 15 + 11}
 
 
 def rotated_scene(scene, degrees):
@@ -334,11 +363,11 @@ def kernel_ms(fn, reps):
     return device_ms(fn, reps)[0]
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, rate=F32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the operations over the f32 rate."""
+    and the operations over `rate` (the f32 rate unless said)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -434,15 +463,17 @@ def read_launches():
     return {name: wrapper(name).launches for name in KERNELS}
 
 
-def ray_bound(n_rects, rays, bytes_per_ray, extra_bytes=0):
-    """Bound of a nearest-hit launch over `rays` rays: every ray tests all
-    n_rects rects (OPS_PER_RECT_TEST each, about 10 more per ray for the
-    reciprocals and the result). Bytes: the scene table, `bytes_per_ray`
-    (origin and direction read, results written; 0 when the kernel makes
-    its rays) and `extra_bytes` (a kernel's other inputs and outputs)."""
-    ops = rays * (n_rects * OPS_PER_RECT_TEST + 10)
+def ray_bound(kernel, n_rects, rays, bytes_per_ray, extra_bytes=0):
+    """Bound of a launch of the nearest-hit kernel `kernel` over `rays`
+    rays: every ray tests all n_rects rects (AA_RECT_TEST_INSTRUCTIONS
+    each, AA_RAY_INSTRUCTIONS[kernel] more per ray), at LANE_INSTR_PER_S.
+    Bytes: the scene table, `bytes_per_ray` (origin and direction read,
+    results written; 0 when the kernel makes its rays) and `extra_bytes`
+    (a kernel's other inputs and outputs)."""
+    ops = rays * (n_rects * AA_RECT_TEST_INSTRUCTIONS
+                  + AA_RAY_INSTRUCTIONS[kernel])
     nbytes = 4 * 13 * n_rects + rays * bytes_per_ray + extra_bytes
-    return bound(nbytes, ops)
+    return bound(nbytes, ops, LANE_INSTR_PER_S)
 
 
 def batch_setup(png, cfg, dev):
@@ -597,83 +628,110 @@ def nearest_inputs(scene, dev, cfg):
                 dirs=d.reshape(-1, 3).contiguous(), fused=fused)
 
 
-def kernels_vs_plain(inp, reps, plain_reps, fused_texels=None):
-    """Each nearest-hit kernel against its plain version on `inp`, with its
-    time, the plain time and the bound. The fused AO is compared (and its
-    plain version timed) on the first `fused_texels` texels when given; its
-    kernel is also timed on the whole pass."""
+# 13x13's cut for the nearest-hit kernels: compared on the first rays and
+# texels, the AO timed on its first texels (its whole pass takes seconds)
+NEAREST_CUT_13 = (1 << 18, 1024, 16384)
+
+
+def kernels_vs_plain(inp, reps, plain_reps, rays=None, texels=None,
+                     timed_texels=None):
+    """Each nearest-hit kernel (rows 12-14) on `inp` (nearest_inputs)
+    against its plain version at phase 12's bands (ids and distances equal
+    on >= 99.9% of rays; the AO within rel 1e-5 with the same zeros) and
+    run twice bit for bit; with its device ms and host µs a call
+    (device_ms), the plain version's ms, the bound and its share, and the
+    instance, registers, shared bytes and blocks per SM that the library
+    reports (aa_query.nearest_plan, ao.ao_fused_plan). Compared (and the
+    plain version timed) on the first `rays` rays and `texels` texels when
+    given, else on all; the fused AO timed on its first `timed_texels`
+    texels when given, else on the whole pass."""
+    import torch
+
     from flatmatch_tpu_torch.engines import ao
     from flatmatch_tpu_torch.ops import aa_query
 
+    def twice(run):
+        a, b = run(), run()
+        sync()
+        same = all(torch.equal(x, y) for x, y in zip(a, b)) if \
+            isinstance(a, tuple) else torch.equal(a, b)
+        check(same, "two runs differ")
+        return a
+
+    def timed(run, plain, bnd, plan, cut, **r):
+        ms, host_us = device_ms(run, reps)
+        pms = cuda_ms(plain, plain_reps)
+        return dict(r, bit_identical_rerun=True, ms=ms, host_us=host_us,
+                    **{"plain_ms_compared" if cut else "plain_ms": pms},
+                    bound_ms=bnd[0], bound_by=bnd[1],
+                    share_of_bound=bnd[0] / ms, **plan)
+
     out = {}
-    ext = inp["aa_ext"]
+    ext, aa = inp["aa_ext"], inp["aa"]
+    n_ext, n = ext.fields.shape[1], aa.fields.shape[1]
+    dev = aa.fields.device
     args = (ext.fields, ext.group_counts, inp["src"], inp["direc"])
-    dist, tex = aa_query.aa_nearest(*args)
-    pdist, ptex = aa_query.aa_nearest_plain(*args)
-    sync()
+    cargs = (ext.fields, ext.group_counts, inp["src"][:rays],
+             inp["direc"][:rays])
+    dist, tex = twice(lambda: aa_query.aa_nearest(*args))
+    pdist, ptex = aa_query.aa_nearest_plain(*cargs)
+    dist, tex = dist[:rays], tex[:rays]
     ids_eq = (tex == ptex).float().mean().item()
     dist_eq = (dist == pdist).float().mean().item()
-    same = (tex == ptex) & (tex >= 0)
-    err = (dist - pdist)[same].abs().max().item()
     check(ids_eq >= 0.999 and dist_eq >= 0.999,
           f"aa_nearest: ids equal {ids_eq}, distances equal {dist_eq}")
+    same = (tex == ptex) & (tex >= 0)
     R = inp["src"].shape[0]
-    n_ext = ext.fields.shape[1]
-    out["aa_nearest"] = dict(
-        rays=R, rects=n_ext, ids_equal=ids_eq, dist_equal=dist_eq,
-        hit_share=(ptex >= 0).float().mean().item(), max_abs_err=err,
-        ms=kernel_ms(lambda: aa_query.aa_nearest(*args), reps),
-        plain_ms=cuda_ms(lambda: aa_query.aa_nearest_plain(*args),
-                         plain_reps),
-        **dict(zip(("bound_ms", "bound_by"), ray_bound(n_ext, R, 24 + 8))))
+    out["aa_nearest"] = timed(
+        lambda: aa_query.aa_nearest(*args),
+        lambda: aa_query.aa_nearest_plain(*cargs),
+        ray_bound("aa_nearest", n_ext, R, 24 + 8),
+        aa_query.nearest_plan(n_ext, True, dev), rays is not None,
+        rays=R, compared_rays=ptex.shape[0], rects=n_ext, ids_equal=ids_eq,
+        dist_equal=dist_eq, hit_share=(ptex >= 0).float().mean().item(),
+        max_abs_err=(dist - pdist)[same].abs().max().item())
 
-    aa = inp["aa"]
     args = (aa.fields, aa.group_counts, inp["origins"], inp["dirs"], 10.0)
-    got = aa_query.nearest_distances(*args)
-    want = aa_query.nearest_distances_plain(*args)
-    sync()
+    cargs = (aa.fields, aa.group_counts, inp["origins"][:rays],
+             inp["dirs"][:rays], 10.0)
+    got = twice(lambda: aa_query.nearest_distances(*args))[:rays]
+    want = aa_query.nearest_distances_plain(*cargs)
     eq = (got == want).float().mean().item()
     check(eq >= 0.999, f"nearest_distances: only {eq} equal")
     R = inp["origins"].shape[0]
-    n = aa.fields.shape[1]
-    out["nearest_distances"] = dict(
-        rays=R, rects=n, equal_share=eq,
-        max_abs_err=(got - want).abs().max().item(),
-        ms=kernel_ms(lambda: aa_query.nearest_distances(*args),
-                      reps),
-        plain_ms=cuda_ms(lambda: aa_query.nearest_distances_plain(*args),
-                         plain_reps),
-        **dict(zip(("bound_ms", "bound_by"), ray_bound(n, R, 24 + 4))))
+    out["nearest_distances"] = timed(
+        lambda: aa_query.nearest_distances(*args),
+        lambda: aa_query.nearest_distances_plain(*cargs),
+        ray_bound("nearest_distances", n, R, 24 + 4),
+        aa_query.nearest_plan(n, False, dev), rays is not None,
+        rays=R, compared_rays=want.shape[0], rects=n, equal_share=eq,
+        max_abs_err=(got - want).abs().max().item())
 
     centers, walls, dirs, fac = inp["fused"]
-    T = min(centers.shape[0], fused_texels or centers.shape[0])
-    args = (aa.fields, aa.group_counts, centers[:T], walls[:T], dirs, fac,
-            10.0)
-    a, b = ao.ao_fused(*args), ao.ao_fused(*args)
-    want = ao.ao_fused_plain(*args)
+    T = min(centers.shape[0], timed_texels or centers.shape[0])
+    Tc = min(T, texels or T)
+    run = (aa.fields, aa.group_counts, centers[:T], walls[:T], dirs, fac,
+           10.0)
+    cargs = (aa.fields, aa.group_counts, centers[:Tc], walls[:Tc], dirs, fac,
+             10.0)
+    got = twice(lambda: ao.ao_fused(*run))[:Tc]
+    want = ao.ao_fused_plain(*cargs)
     sync()
-    check(bool((a == b).all()), "ao_fused: two runs differ")
-    check(bool(((a == 0) == (want == 0)).all()),
+    check(bool(((got == 0) == (want == 0)).all()),
           "ao_fused: zero pattern differs from the plain version")
     nz = want != 0
-    rel = ((a[nz] - want[nz]).abs() / want[nz].abs()).max().item()
+    rel = ((got[nz] - want[nz]).abs() / want[nz].abs()).max().item()
     check(rel <= 1e-5, f"ao_fused: relative error {rel}")
     K = int((fac > 0).sum().item())   # the real directions
-    whole = (aa.fields, aa.group_counts, centers, walls, dirs, fac, 10.0)
-    T_all = centers.shape[0]
-    extra = (12 + 4 + 4) * T_all + 4 * dirs.numel() + 4 * fac.numel()
-    out["ao_fused"] = dict(
-        texels=T_all, compared_texels=T, directions=K, rects=n,
-        max_rel_err=rel, equal_share=(a == want).float().mean().item(),
-        max_abs_err=(a - want).abs().max().item(),
-        ms=kernel_ms(lambda: ao.ao_fused(*whole), reps),
-        ms_compared=cuda_ms(lambda: ao.ao_fused(*args), reps),
-        plain_ms_compared=cuda_ms(lambda: ao.ao_fused_plain(*args),
-                                  plain_reps),
-        **dict(zip(("bound_ms", "bound_by"),
-                   ray_bound(n, T_all * K, 0, extra))))
-    if T == T_all:
-        out["ao_fused"]["plain_ms"] = out["ao_fused"]["plain_ms_compared"]
+    extra = (12 + 4 + 4) * T + 4 * dirs.numel() + 4 * fac.numel()
+    out["ao_fused"] = timed(
+        lambda: ao.ao_fused(*run),
+        lambda: ao.ao_fused_plain(*cargs),
+        ray_bound("ao_fused", n, T * K, 0, extra), ao.ao_fused_plan(n, dev),
+        Tc < centers.shape[0], texels=T, compared_texels=Tc, directions=K,
+        rects=n, max_rel_err=rel,
+        equal_share=(got == want).float().mean().item(),
+        max_abs_err=(got - want).abs().max().item())
     return out
 
 
@@ -836,7 +894,7 @@ def ao_radiosity_phases(dev, results, make_layout):
     T0 = sum(num_tiles(w) for w in scene.walls)
 
     # 12. the three kernels against their plain versions on mini -----------
-    k12 = kernels_vs_plain(nearest_inputs(scene, dev, cfg), 10, 2)
+    k12 = kernels_vs_plain(nearest_inputs(scene, dev, cfg), 20, 2)
     for name, r in k12.items():
         results[name] = dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
                              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
@@ -954,8 +1012,8 @@ def ao_radiosity_phases(dev, results, make_layout):
         png = pathlib.Path(tmp) / "mini_4x4.png"
         make_layout.tiled(str(mini), str(png), 4, 4)
         scene6, _ = compile_scene(str(png), 30.0, cfg)
-    k17 = kernels_vs_plain(nearest_inputs(scene6, dev, cfg), 3, 1,
-                           fused_texels=8192)
+    k17 = kernels_vs_plain(nearest_inputs(scene6, dev, cfg), 5, 1,
+                           texels=8192)
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     sync()
@@ -985,11 +1043,16 @@ def ao_radiosity_phases(dev, results, make_layout):
     say("apartment_4x4_ao_radiosity", rects=len(scene6.walls),
         texels=scene6.num_texels, level0_texels=int(l06.sum()),
         ao=dict(wall_s=wall_ao6, launches=ao_launches6, peak_bytes=ao_peak6,
-                kernel_share_of_wall=k17["ao_fused"]["ms"] / 1e3 / wall_ao6),
+                kernel_share_of_wall=k17["ao_fused"]["ms"] / 1e3 / wall_ao6,
+                profile=profiled(lambda: run_engine(scene6, cfg_ao, dev))),
         radiosity=dict(rays=cfg.radiosity.rays_per_texel, wall_s=wall_rad6,
                        launches=rad_launches6, peak_bytes=rad_peak6,
                        **split(scene6, cfg.radiosity)),
         kernels=k17)
+    walls = dict(ao_wall_s=wall_ao6, ao_fused_launches=ao_launches6,
+                 radiosity_wall_s=wall_rad6,
+                 radiosity_aa_nearest_launches=rad_launches6)
+    return walls, {"mini": k12, "4x4": k17}
 
 
 # --------------------------------------------------------------------------
@@ -2003,10 +2066,14 @@ def threefry_phases(dev, results, cfg, s, s6, make_layout):
                                hit_share=(tex >= 0).float().mean().item()),
                nearest_distances=dict(rays=src.shape[0], equal_share=1.0),
                ao_fused=dict(texels=256, max_rel_err=rel))
+    # and at the CLI's defaults (phase 12's inputs), on NEAREST_CUT_13
+    k30["nearest_at_cli_defaults"] = kernels_vs_plain(
+        nearest_inputs(scene13, dev, cfg), 2, 1, *NEAREST_CUT_13)
     say("past_the_old_shared_memory_caps", scene="mini tiled 13x13",
         rects=n13, table_bytes=4 * 13 * n13, compact_texels=s13["total_c"],
-        fold_max_rects=pw.fold_max_rects(D), **k30)
+        fold_pass_slots=pw.fold_pass_slots(D), **k30)
     del s13, aa13
+    return k30["nearest_at_cli_defaults"]
 
 
 # --------------------------------------------------------------------------
@@ -2041,9 +2108,7 @@ def narrow_bound(n_rects, bounces, photons, depth=8):
                       + OPS_PER_BOUNCE) + photons * OPS_PER_PHOTON)
     nbytes = (4 * (18 * n_rects + 16) + 4 * (4 + 3 * depth) * photons
               + 16 * depth * photons)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / LANE_INSTR_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+    return bound(nbytes, ops, LANE_INSTR_PER_S)
 
 
 def narrow_vs_plain(g, cfg, n_valid, reps=20, plain_reps=2):
@@ -2810,6 +2875,145 @@ def redesigned_narrow_splat_phase(dev, results, cfg, gens, scenes):
     say("redesigned_narrow_and_i8_splat", **k38)
 
 
+# --------------------------------------------------------------------------
+# the redesigned nearest-hit kernels (rows 12-14) and the fold past its old
+# cap (39)
+# --------------------------------------------------------------------------
+# the fold past its old cap: mini tiled 16x16 (6,912 rect slots, two
+# passes) at this share of the CLI's samples, about 60 batches a pass
+FOLD16_SAMPLES_SHARE = 1 / 2048
+
+
+def redesigned_nearest_phase(nearest, walls17):
+    """39. the redesigned nearest-hit kernels (rows 12-14: the photon
+    trace's rect loop over per-rect records, the texel after the loop,
+    grids of up to 32,768 blocks; row 12's tree within a warp by shuffles),
+    as phases 12, 17 and 30 held them against their plain versions and
+    timed them on mini, the 4x4 tiling and mini tiled 13x13 (`nearest`,
+    scene -> kernels_vs_plain): mini and 4x4 take the shared-memory
+    instances, 13x13 the device-memory ones; beside them, the walls of
+    phase 17's 4x4 AO and radiosity renders."""
+    for scene, want in (("mini", "shared"), ("4x4", "shared"),
+                        ("13x13", "device")):
+        insts = {kern: r["instance"] for kern, r in nearest[scene].items()}
+        check(set(insts.values()) == {want},
+              f"{scene}: the nearest-hit kernels took {insts}")
+    say("redesigned_nearest_kernels", **{
+        scene: {kern: {k: r[k] for k in (
+            "ms", "host_us", "bound_ms", "share_of_bound", "instance",
+            "registers", "shared_bytes", "blocks_per_sm")}
+            for kern, r in k.items()} for scene, k in nearest.items()},
+        apartment_4x4_walls=dict(
+            walls17,
+            aa_nearest_ms_per_chunk=nearest["4x4"]["aa_nearest"]["ms"],
+            ao_fused_ms_per_pass=nearest["4x4"]["ao_fused"]["ms"]))
+
+
+def fold_past_the_cap_phase(dev, cfg, make_layout):
+    """39, part A. The fold past its old cap of 6,752 rect slots: mini tiled
+    16x16 (6,912 slots, two passes of the fold), on a batch of 8192
+    photons, both folds (counter hash, threefry uniforms) against their
+    plain versions at the fold band (rtol 1e-4) and run twice bit for bit,
+    with device ms a batch of the CLI's size; then one step of the fit
+    (fit_materials) of that scene at FOLD16_SAMPLES_SHARE of the CLI's
+    samples, with its launches, and one forward plus backward of it."""
+    import numpy as np
+    import torch
+
+    from flatmatch_tpu_torch.diff.fit import fit_materials
+    from flatmatch_tpu_torch.diff.render import make_diff_renderer_wide
+    from flatmatch_tpu_torch.engines import photon_wide as pw
+    from flatmatch_tpu_torch.ops import threefry
+    from flatmatch_tpu_torch.ops.aa_scene import pack_aa
+
+    ph = cfg.photon
+    B, D = ph.photons_per_batch, ph.max_depth
+    cfg16 = cfg.replace(photon=dataclasses.replace(
+        ph, samples_per_area=ph.samples_per_area * FOLD16_SAMPLES_SHARE))
+    with tempfile.TemporaryDirectory() as tmp:
+        png = pathlib.Path(tmp) / "mini_16x16.png"
+        make_layout.tiled(str(FIXTURES / "mini.png"), str(png), 16, 16)
+        s16 = batch_setup(png, cfg16, dev)
+    scene16 = s16["scene"]
+    # the last emitter lights the last tile, whose rects lie past slot
+    # 6,752 too (the first emitter's photons never leave tile 0)
+    s16["ev"] = pw.emitter_vector(s16["em"], len(s16["em"].counts) - 1)
+    f, gc = s16["aa_c"].fields, s16["aa_c"].group_counts
+    n = f.shape[1]
+    per = pw.fold_pass_slots(D)
+    check(n == 6912 and per < n <= 2 * per,
+          f"16x16: {n} slots, not two passes of {per}")
+    passes = [(0, per), (per, n)]
+    d = diff_setup(s16, cfg16, dev, power=1.7)
+    Bc = 8192
+    u = threefry.batch_uniforms(ph.seed, 0, Bc, pw.uniforms_per_photon(D),
+                                dev, transposed=True)
+    folds = {
+        "trace_fold_wide_rng": (
+            lambda: fold_batch(s16, d, cfg16, Bc),
+            lambda: fold_plain(s16, d, cfg16, Bc)),
+        "trace_fold_wide": (
+            lambda: pw.trace_fold_wide(f, gc, d["alb"], d["ev"], d["g"], u,
+                                       Bc, ph, n),
+            lambda: pw.fold_plain(*pw.trace_uniforms_plain(
+                f, gc, d["ev"], u.t(), Bc, ph, d["alb"]), d["g"], n)),
+    }
+    k = {}
+    for name, (run, plain) in folds.items():
+        (da, w), (da2, w2) = run(), run()
+        want_da, want_w = plain()
+        sync()
+        check(torch.equal(da, da2) and torch.equal(w, w2),
+              f"16x16 {name}: two runs differ")
+        da_max = want_da.abs().max().item()
+        check(da_max > 0, f"16x16 {name}: the plain fold folded nothing")
+        check(bool(((da - want_da).abs()
+                    <= 1e-4 * want_da.abs() + 1e-6 * da_max).all()),
+              f"16x16 {name}: da differs from the plain fold")
+        rel_w = abs(w.item() - want_w.item()) / abs(want_w.item())
+        check(rel_w <= 1e-4, f"16x16 {name}: w_sum relative error {rel_w}")
+        check(bool((want_da[passes[1][0]:] != 0).any()),
+              f"16x16 {name}: no slot of the second pass was hit")
+        k[name] = dict(da_max_abs_err=(da - want_da).abs().max().item(),
+                       da_max=da_max, w_sum_rel_err=rel_w,
+                       slots_touched=int((want_da != 0).sum().item()),
+                       slots_touched_past_first_pass=int(
+                           (want_da[passes[0][1]:] != 0).sum().item()),
+                       bit_identical_rerun=True)
+    k["trace_fold_wide_rng"]["ms_per_cli_batch"] = kernel_ms(
+        lambda: fold_batch(s16, d, cfg16, B), 2)
+    del d, u
+    em = s16["em"]
+    aa = pack_aa(scene16.walls, device=dev)
+    r = make_diff_renderer_wide(em, scene16.num_texels, cfg16.photon, aa)
+    nb = len(r.batches)
+    with torch.no_grad():
+        target = r(torch.full((len(scene16.walls),), 0.9, device=dev),
+                   torch.ones(len(em.counts), device=dev)).cpu().numpy()
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    fit = fit_materials(target, em, scene16.num_texels, cfg16.photon, aa=aa,
+                        steps=1, init_albedo=0.6, init_power=0.5)
+    sync()
+    fit_s = time.perf_counter() - t0
+    launches = {kk: v for kk, v in read_launches().items() if v}
+    want = {"trace_splat_wide_diff_rng_i8": 2 * nb, "trace_fold_wide_rng": nb}
+    check(launches == want, f"16x16 fit step: launches {launches}, want "
+          f"{want}")
+    check(bool(np.isfinite(fit.losses).all() & np.isfinite(fit.albedo).all()
+               & np.isfinite(fit.power).all()), "16x16 fit not finite")
+    fwd, bwd, wall = fwd_bwd_ms(dev, r, len(scene16.walls), len(em.counts),
+                                0.6, 0.5)
+    say("fold_past_the_old_cap", scene="mini tiled 16x16", rects=n,
+        fold_pass_slots=pw.fold_pass_slots(D), passes=passes,
+        compact_texels=s16["total_c"], checked_batch=Bc, folds=k,
+        fit=dict(samples_per_area=cfg16.photon.samples_per_area,
+                 photons=int(em.counts.sum()), batches_per_pass=nb,
+                 fit_materials_one_step_s=fit_s, launches=launches,
+                 forward_ms=fwd, backward_ms=bwd, step_wall_s=wall))
+
+
 def main():
     import torch
 
@@ -3138,16 +3342,19 @@ def main():
         fold_plain_ms_per_batch=plain11b, diff_bound_ms=b11f[0],
         fold_bound_ms=b11b[0], production_ms_per_batch=ms6)
 
-    ao_radiosity_phases(dev, results, make_layout)
+    walls17, nearest = ao_radiosity_phases(dev, results, make_layout)
     stream_phases(dev, results, cfg, s, dict(s5, cfg=cfg5), s6)
     inkernel_phases(dev, results, cfg, s, dict(s5, cfg=cfg5), s6)
-    threefry_phases(dev, results, cfg, s, s6, make_layout)
+    nearest["13x13"] = threefry_phases(dev, results, cfg, s, s6,
+                                       make_layout)
     gens = general_phases(dev, results, make_layout)
     s13 = redesigned_trace_phase(dev, cfg, s, s6, make_layout)
     redesigned_splat_phase(dev, results, cfg, {"mini": s, "4x4": s6,
                                                "13x13": s13})
     redesigned_narrow_splat_phase(dev, results, cfg, gens,
                                   {"mini": s, "4x4": s6, "13x13": s13})
+    redesigned_nearest_phase(nearest, walls17)
+    fold_past_the_cap_phase(dev, cfg, make_layout)
 
     print(json.dumps({"kernels": [dict(KERNELS[k], **results[k])
                                   for k in KERNELS]}))

@@ -38,9 +38,15 @@
 //     fixed, so two runs give the same bits;
 //   - the per-warp rows take 32 bytes per rect. The table and albedo row
 //     (56 bytes per rect) go beside them while all fit, and stay in device
-//     memory past that (launch_table, trace_wide.cuh), so the fold takes
-//     scenes up to (232448 - 8 * max_depth * 256) / 32 rects: 6,752 at
-//     max_depth 8. The wrapper refuses larger ones.
+//     memory past that (launch_table, trace_wide.cuh). The rows of
+//     (232448 - 8 * max_depth * 256) / 32 slots fit (pass_slots: 6,752 at
+//     max_depth 8); a table of more slots is folded in passes over slot
+//     ranges [lo, hi) of at most that many, each a replay of the batch
+//     whose warps sum only the slots of their range into rows indexed by
+//     slot - lo, and write its rows of the per-block partials. A slot's
+//     sum is the one a single pass would take, in the same order, so the
+//     passes give the same bits; pass 0 alone writes w_sum's row. A
+//     table of up to pass_slots slots is folded in one pass.
 //
 // What bounds it on an H100: the replayed trace, as in the forward kernel
 // (the instruction rate of the rect loop). The gather reads 12 bytes per
@@ -51,6 +57,7 @@
 // flatmatch_tpu_torch/utils/cuda_build.py).
 #include <cuda_bf16.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "trace_wide.cuh"
@@ -72,13 +79,14 @@ trace_fold_kernel(const float* __restrict__ scene,
                   const float* __restrict__ albedo,
                   const float* __restrict__ em, const float* __restrict__ g,
                   const float* __restrict__ u_t, int batch, const Params P,
-                  float* __restrict__ part) {
+                  int lo, int hi, float* __restrict__ part) {
   const int N = P.n_rects;
+  const int M = hi - lo;                       // this pass's slots
   const int D = P.max_depth;
   const int t = threadIdx.x;
   extern __shared__ __align__(16) float smem[];
   const float* alb = albedo;
-  float* s_acc = smem;                         // [kWarps][N] per-warp sums
+  float* s_acc = smem;                         // [kWarps][M] per-warp sums
   if constexpr (kSmem) {
     float* s_alb = smem + table_floats(N);     // [N], after the scene
     stage(s_alb, albedo, N);
@@ -87,9 +95,9 @@ trace_fold_kernel(const float* __restrict__ scene,
   }
   // the staged scene; its barrier also covers the albedo row
   const Rects<kSmem> rects = stage_scene<kSmem>(smem, scene, em, P);
-  float* s_w = s_acc + kWarps * N;             // [D][kThreads]: w, then S
+  float* s_w = s_acc + kWarps * M;             // [D][kThreads]: w, then S
   int* s_slot = reinterpret_cast<int*>(s_w + D * kThreads);  // [D][kThreads]
-  for (int i = t; i < kWarps * N; i += kThreads) s_acc[i] = 0.0f;
+  for (int i = t; i < kWarps * M; i += kThreads) s_acc[i] = 0.0f;
   for (int d = 0; d < D; ++d) {
     s_w[d * kThreads + t] = 0.0f;
     s_slot[d * kThreads + t] = -1;
@@ -129,36 +137,38 @@ trace_fold_kernel(const float* __restrict__ scene,
   }
   __syncthreads();
 
-  // per-warp slot sums, bounce by bounce, in lane order within a slot
+  // per-warp slot sums of the pass's slots, bounce by bounce, in lane order
+  // within a slot
   const int lane = t & 31;
   const int warp = t >> 5;
-  float* acc = s_acc + warp * N;
+  float* acc = s_acc + warp * M;
   for (int d = 0; d < D; ++d) {
     const int slot = s_slot[d * kThreads + t];
     const unsigned peers = __match_any_sync(0xffffffffu, slot);
-    if (slot >= 0 && lane == __ffs(peers) - 1) {
+    if (slot >= lo && slot < hi && lane == __ffs(peers) - 1) {
       float sum = 0.0f;
       for (unsigned m = peers; m; m &= m - 1) {
         sum = sum + s_w[d * kThreads + (warp << 5) + __ffs(m) - 1];
       }
-      acc[slot] = acc[slot] + sum;
+      acc[slot - lo] = acc[slot - lo] + sum;
     }
     __syncwarp();
   }
   __syncthreads();
 
   const int nb = gridDim.x;
-  for (int n = t; n < N; n += kThreads) {
+  for (int n = t; n < M; n += kThreads) {
     float sum = 0.0f;
-    for (int w = 0; w < kWarps; ++w) sum = sum + s_acc[w * N + n];
-    part[n * nb + blockIdx.x] = sum;
+    for (int w = 0; w < kWarps; ++w) sum = sum + s_acc[w * M + n];
+    part[static_cast<size_t>(lo + n) * nb + blockIdx.x] = sum;
   }
+  if (lo != 0) return;
   // the block's w_sum: a fixed tree over S(p, 0), row 0 of s_w
   for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
     if (t < stride) s_w[t] = s_w[t] + s_w[t + stride];
     __syncthreads();
   }
-  if (t == 0) part[N * nb + blockIdx.x] = s_w[0];
+  if (t == 0) part[static_cast<size_t>(N) * nb + blockIdx.x] = s_w[0];
 }
 
 // out[r] = sum over blocks b of part[r * nb + b], for the N + 1 rows: one
@@ -170,14 +180,28 @@ fold_sum_kernel(const float* __restrict__ part, int rows, int nb,
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;
   float sum = 0.0f;
-  for (int b = lane; b < nb; b += 32) sum = sum + part[r * nb + b];
+  for (int b = lane; b < nb; b += 32) {
+    sum = sum + part[static_cast<size_t>(r) * nb + b];
+  }
   for (int off = 16; off > 0; off >>= 1) {
     sum = sum + __shfl_down_sync(0xffffffffu, sum, off);
   }
   if (lane == 0) out[r] = sum;
 }
 
-// Replay one batch: the fold kernel, then the fixed-order sum over blocks.
+// The most slots whose per-warp rows fit in a block beside the
+// [D][kThreads] w and slot buffers (engines/photon_wide.py fold_pass_slots).
+inline int pass_slots(int max_depth) {
+  const size_t buffers = sizeof(float) * 2 * static_cast<size_t>(max_depth) *
+                         kThreads;
+  return buffers >= kSmemLimit
+             ? 0
+             : static_cast<int>((kSmemLimit - buffers) /
+                                (sizeof(float) * kWarps));
+}
+
+// Replay one batch: the fold kernel, once for each pass over at most
+// pass_slots slots, then the fixed-order sum over blocks.
 template <class Draw>
 int run_fold(const float* scene, const float* albedo, const float* em,
              const float* g, const float* u_t, int batch, float* part,
@@ -185,17 +209,23 @@ int run_fold(const float* scene, const float* albedo, const float* em,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = P.n_rects + 1;
   const int nb = P.n_valid > 0 ? (P.n_valid + kThreads - 1) / kThreads : 0;
-  if (nb > 0) {
-    // the per-warp rows and the [D][kThreads] w and slot buffers; the
-    // wrapper in engines/photon_wide.py checks the same sum
+  const int per_pass = pass_slots(P.max_depth);
+  if (per_pass <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  // pass 0 runs even on an empty table: it writes w_sum's row
+  for (int lo = 0; nb > 0;) {
+    const int hi = std::min(P.n_rects, lo + per_pass);
+    // the pass's per-warp rows and the [D][kThreads] w and slot buffers
     const size_t buffers =
-        sizeof(float) * (kWarps * static_cast<size_t>(P.n_rects) +
+        sizeof(float) * (kWarps * static_cast<size_t>(hi - lo) +
                          2 * static_cast<size_t>(P.max_depth) * kThreads);
     const int rc = launch_table(
         trace_fold_kernel<Draw, true>, trace_fold_kernel<Draw, false>,
         sizeof(float) * (table_floats(P.n_rects) + P.n_rects), buffers,
-        0, nb, kThreads, st, scene, albedo, em, g, u_t, batch, P, part);
+        0, nb, kThreads, st, scene, albedo, em, g, u_t, batch, P, lo, hi,
+        part);
     if (rc != 0) return rc;
+    if (hi >= P.n_rects) break;
+    lo = hi;
   }
   // with no live photon every row sums to 0
   fold_sum_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(

@@ -264,12 +264,16 @@ constexpr size_t kSmemLimit = 232448;
 // kernel), and the global instance only past that: the JAX package, which
 // keeps the table in VMEM, has no cap on a scene's rect count, and the
 // port has none either.
+inline bool table_in_smem(size_t table_bytes, size_t buffer_bytes,
+                          size_t static_bytes) {
+  return table_bytes + buffer_bytes + static_bytes <= kSmemLimit;
+}
+
 template <class Kernel, class... Args>
 int launch_table(Kernel k_smem, Kernel k_global, size_t table_bytes,
                  size_t buffer_bytes, size_t static_bytes, int blocks,
                  int threads, cudaStream_t s, Args... args) {
-  const bool in_smem =
-      table_bytes + buffer_bytes + static_bytes <= kSmemLimit;
+  const bool in_smem = table_in_smem(table_bytes, buffer_bytes, static_bytes);
   const Kernel k = in_smem ? k_smem : k_global;
   const size_t smem = (in_smem ? table_bytes : 0) + buffer_bytes;
   if (smem + static_bytes > kSmemLimit) {
@@ -280,6 +284,53 @@ int launch_table(Kernel k_smem, Kernel k_global, size_t table_bytes,
   if (err != cudaSuccess) return static_cast<int>(err);
   k<<<blocks, threads, smem, s>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What launch_table launches for these sizes, without a launch: the
+// instance (in_smem 1 for the shared-memory one), its shared memory in
+// bytes (dynamic and static), its registers and its blocks per SM on the
+// current device (the occupancy calculator). Returns the CUDA error code.
+template <class Kernel>
+int table_plan(Kernel k_smem, Kernel k_global, size_t table_bytes,
+               size_t buffer_bytes, size_t static_bytes, int threads,
+               int* in_smem, int* shared_bytes, int* registers,
+               int* blocks_per_sm) {
+  const bool smem_inst =
+      table_in_smem(table_bytes, buffer_bytes, static_bytes);
+  const Kernel k = smem_inst ? k_smem : k_global;
+  const size_t smem = (smem_inst ? table_bytes : 0) + buffer_bytes;
+  if (smem + static_bytes > kSmemLimit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaFuncAttributes attr;
+  int blocks = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, k);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads,
+                                                        smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *in_smem = smem_inst ? 1 : 0;
+  *shared_bytes = static_cast<int>(smem + attr.sharedSizeBytes);
+  *registers = attr.numRegs;
+  *blocks_per_sm = blocks;
+  return 0;
+}
+
+// Blocks of a grid-stride launch over `work` items of `per_block` each (the
+// nearest-hit kernels): at most kStrideBlocks, each of which stages the
+// table once. On an H100, at five or nine blocks a SM, more blocks
+// measured faster, up to this cap (the last wave is shorter): 2,048 blocks
+// 2-8% slower, one wave of blocks 1-9% slower than 2,048, no cap the same
+// (PERF.md).
+constexpr int kStrideBlocks = 32768;
+
+inline int capped_blocks(long long work, int per_block) {
+  const long long want = (work + per_block - 1) / per_block;
+  return static_cast<int>(want < kStrideBlocks ? (want > 0 ? want : 1)
+                                               : kStrideBlocks);
 }
 
 // out[i] = f32(acc[i]) * 2^-k: one rounding to f32, then an exact power-of-
@@ -495,7 +546,8 @@ __device__ __forceinline__ bool bounce(const Params& P, const Draw& draws,
 // build_base at each diffuse bounce instead.
 // Device-memory instance: the [F_AA][N] table read field by field where it
 // lies (L1 and L2), and build_base called per photon and diffuse bounce.
-// Both feed the same rect loop (trace_photon).
+// Both feed the same rect loop (nearest_rect), which the nearest-hit
+// kernels run too, on the records alone (AaRects).
 constexpr int kConstFloats = 64;
 enum { C_AXIS = 0, C_EMB = 36, C_EM = 42 };
 
@@ -528,25 +580,28 @@ __device__ __forceinline__ bool same_bits(const Basis& b, const float* w) {
 }
 
 // The normal-axis group of table column j: groups are contiguous, in axis
-// order, so this is the group whose loop visits j.
-__device__ __forceinline__ int axis_of(int j, const Params& P) {
-  return (j >= P.g0) + (j >= P.g0 + P.g1);
+// order (g0 rects, then g1, then the rest), so this is the group whose loop
+// visits j.
+__device__ __forceinline__ int axis_of(int j, int g0, int g1) {
+  return (j >= g0) + (j >= g0 + g1);
 }
 
+// The rects as the axis-aligned rect loop (nearest_rect) reads them: a rect
+// test's eight fields as two float4 (loop), and the winner's texel rows
+// (field). The photon trace (Rects) and the nearest-hit kernels
+// (aa_nearest.cu, ao_fused.cu) share them.
 template <bool kSmem>
-struct Rects;
+struct AaRects;
 
 template <>
-struct Rects<true> {
+struct AaRects<true> {
   // rect tests per step of the unrolled loop (on an H100, 8 measured
   // fastest on the 4x4 tiling against 2 and 4, and against two chains of
   // independent minimums over halves of each group)
   static constexpr int kUnroll = 8;
-  const float* c;     // block constants
   const float4* rec;  // [2N] loop records
   const float* tex;   // [5][N] texel rows
   int n;
-  bool exact;         // the axis bases stand for build_base at every rect
 
   __device__ __forceinline__ void loop(int j, float4& a, float4& b) const {
     a = rec[2 * j];
@@ -555,6 +610,151 @@ struct Rects<true> {
   __device__ __forceinline__ float field(int row, int j) const {
     return tex[(row - A_BASE) * n + j];
   }
+};
+
+template <>
+struct AaRects<false> {
+  // unrolled by 2 (measured on an H100 on mini tiled 13x13: 1 about 20%
+  // slower on every instance; 4 holds some 170 registers and slows the
+  // streams)
+  static constexpr int kUnroll = 2;
+  const float* __restrict__ s;    // [F_AA][N] in device memory
+  int n;
+
+  __device__ __forceinline__ void loop(int j, float4& a, float4& b) const {
+    a = make_float4(__ldg(s + A_O * n + j), __ldg(s + A_SN * n + j),
+                    __ldg(s + A_CU * n + j), __ldg(s + A_WS * n + j));
+    b = make_float4(__ldg(s + A_CV * n + j), __ldg(s + A_HS * n + j),
+                    __ldg(s + A_WLEN * n + j), __ldg(s + A_HLEN * n + j));
+  }
+  __device__ __forceinline__ float field(int row, int j) const {
+    return __ldg(s + row * n + j);
+  }
+};
+
+// The [F_AA][N] table as AaRects<kSmem> reads it. With kSmem the block's
+// threads copy it into `smem` (13 N floats, 16-byte aligned) as records,
+//   rec[2j] = {O, SN, CU, WS},   rec[2j + 1] = {CV, HS, WLEN, HLEN},
+// then the five texel rows tex[(row - A_BASE) * N + j] (BASE, WT, HT, KTU,
+// KTV); the caller adds the barrier. Without, it points at the table.
+template <bool kSmem>
+__device__ __forceinline__ AaRects<kSmem> stage_aa_rects(
+    float* smem, const float* __restrict__ table, int n) {
+  if constexpr (!kSmem) {
+    return AaRects<false>{table, n};
+  } else {
+    float4* rec = reinterpret_cast<float4*>(smem);
+    float* tex = smem + 8 * n;
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      rec[2 * j] = make_float4(table[A_O * n + j], table[A_SN * n + j],
+                               table[A_CU * n + j], table[A_WS * n + j]);
+      rec[2 * j + 1] =
+          make_float4(table[A_CV * n + j], table[A_HS * n + j],
+                      table[A_WLEN * n + j], table[A_HLEN * n + j]);
+      for (int k = 0; k < F_AA - A_BASE; ++k) {
+        tex[k * n + j] = table[(A_BASE + k) * n + j];
+      }
+    }
+    return AaRects<true>{rec, tex, n};
+  }
+}
+
+// The axis-aligned rect loop: the nearest front-face hit of the ray (pos,
+// dr) over the three axis groups of `R` (g0, g1 and g2 rects, in table
+// order). Returns its distance, kMiss when nothing is hit, and sets bj to
+// the winner's table column (0 on a miss). Only the running minimum and its
+// column are kept, with selects; the winner's texel comes after the loop
+// (winner_texel). A strict `<` keeps the first of equal minima, the JAX
+// kernels' tie break (photon_pallas_wide.py:384-406). The photon trace
+// (trace_photon) and the nearest-hit kernels (aa_nearest.cu, ao_fused.cu)
+// run this one loop; trace_deposits_narrow.cu's general loop keeps the
+// same three rules (the NaN-false compare chain, the strict `<`, the texel
+// formula).
+template <class Scene>
+__device__ __forceinline__ float nearest_rect(const Scene& R, int g0, int g1,
+                                              int g2, const float pos[3],
+                                              const float dr[3], int& bj) {
+  // division by zero gives inf; the bounds test rejects those rects
+  const float inv[3] = {1.0f / dr[0], 1.0f / dr[1], 1.0f / dr[2]};
+  const int counts[3] = {g0, g1, g2};
+  float best = kMiss;
+  bj = 0;
+  int start = 0;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const int au = (a == 0) ? 1 : 0;
+    const int av = (a == 2) ? 1 : 2;
+    const float pa = pos[a], ia = inv[a];
+    const float pu = pos[au], du = dr[au];
+    const float pv = pos[av], dv = dr[av];
+    const bool da_neg = dr[a] < 0.0f;
+    const int end = start + counts[a];
+#pragma unroll Scene::kUnroll
+    for (int j = start; j < end; ++j) {
+      float4 r0, r1;  // {O, SN, CU, WS}, {CV, HS, WLEN, HLEN}
+      R.loop(j, r0, r1);
+      const float fac = (r0.x - pa) * ia;
+      const float u = (pu + du * fac - r0.z) * r0.w;
+      const float v = (pv + dv * fac - r1.x) * r1.y;
+      // NaN handling in the bounds test (note 1): the JAX kernel writes
+      // min(min(fac,u), min(wlen-u, min(v, hlen-v))) >= 0 and relies on
+      // jnp.minimum propagating NaN (0 * inf from 1/dir). fminf drops
+      // NaN and would accept the hit; this compare chain is false on
+      // NaN, as the min-tree is. `u <= wlen` is `wlen - u >= 0` for a
+      // finite wlen (IEEE subtraction without flush to zero is exact in
+      // sign), and (valid ? fac : MISS) < best is `valid && fac < best`
+      // while best <= MISS.
+      const bool hit = (da_neg != (r0.y < 0.0f)) && fac >= 0.0f &&
+                       u >= 0.0f && u <= r1.z && v >= 0.0f && v <= r1.w &&
+                       fac < best;
+      best = hit ? fac : best;
+      bj = hit ? j : bj;
+    }
+    start = end;
+  }
+  return best;
+}
+
+// The texel id of the winner bj of nearest_rect on its axis `baxis`, from
+// its u and v recomputed from the same floats at fac = best (so the loop
+// need not keep them); sets `bsign` to its normal's sign. Texel ids (note
+// 7): base + ty*wt + tx with tx = min(floor(u * ktu), wt - 1), ty =
+// min(floor(v * ktv), ht - 1), no lower clip, as int32; below 2^24 they
+// equal the JAX kernels' f32 ids. Call it on a hit only: on a miss bj is 0,
+// and an empty table has no column 0.
+template <class Scene>
+__device__ __forceinline__ int winner_texel(const Scene& R, int bj,
+                                            int baxis, float best,
+                                            const float pos[3],
+                                            const float dr[3],
+                                            float& bsign) {
+  float4 r0, r1;
+  R.loop(bj, r0, r1);
+  bsign = r0.y;
+  const float pu = (baxis == 0) ? pos[1] : pos[0];
+  const float du = (baxis == 0) ? dr[1] : dr[0];
+  const float pv = (baxis == 2) ? pos[1] : pos[2];
+  const float dv = (baxis == 2) ? dr[1] : dr[2];
+  const float u = (pu + du * best - r0.z) * r0.w;
+  const float v = (pv + dv * best - r1.x) * r1.y;
+  const float wt = R.field(A_WT, bj);
+  const float tx = fminf(floorf(u * R.field(A_KTU, bj)), wt - 1.0f);
+  const float ty = fminf(floorf(v * R.field(A_KTV, bj)),
+                         R.field(A_HT, bj) - 1.0f);
+  return static_cast<int>(R.field(A_BASE, bj)) +
+         static_cast<int>(ty) * static_cast<int>(wt) +
+         static_cast<int>(tx);
+}
+
+template <bool kSmem>
+struct Rects;
+
+// The trace's scene: the rects (AaRects) and the block constants.
+template <>
+struct Rects<true> : AaRects<true> {
+  const float* c;     // block constants
+  bool exact;         // the axis bases stand for build_base at every rect
+
   __device__ __forceinline__ const float* em() const { return c + C_EM; }
   __device__ __forceinline__ Basis emitter_basis() const {
     return load_basis(c + C_EMB);
@@ -567,24 +767,9 @@ struct Rects<true> {
 };
 
 template <>
-struct Rects<false> {
-  // unrolled by 2 (measured on an H100 on mini tiled 13x13: 1 about 20%
-  // slower on every instance; 4 holds some 170 registers and slows the
-  // streams)
-  static constexpr int kUnroll = 2;
-  const float* __restrict__ s;    // [F_AA][N] in device memory
+struct Rects<false> : AaRects<false> {
   const float* __restrict__ em_;  // the emitter vector in device memory
-  int n;
 
-  __device__ __forceinline__ void loop(int j, float4& a, float4& b) const {
-    a = make_float4(__ldg(s + A_O * n + j), __ldg(s + A_SN * n + j),
-                    __ldg(s + A_CU * n + j), __ldg(s + A_WS * n + j));
-    b = make_float4(__ldg(s + A_CV * n + j), __ldg(s + A_HS * n + j),
-                    __ldg(s + A_WLEN * n + j), __ldg(s + A_HLEN * n + j));
-  }
-  __device__ __forceinline__ float field(int row, int j) const {
-    return __ldg(s + row * n + j);
-  }
   __device__ __forceinline__ const float* em() const { return em_; }
   __device__ __forceinline__ Basis emitter_basis() const {
     return basis_of(em_[9], em_[10], em_[11]);
@@ -605,11 +790,11 @@ __device__ __forceinline__ Rects<kSmem> stage_scene(
     const float* __restrict__ em, const Params& P) {
   const int n = P.n_rects;
   if constexpr (!kSmem) {
-    return Rects<false>{table, em, n};
+    return Rects<false>{{table, n}, em};
   } else {
     float* c = smem;
-    float4* rec = reinterpret_cast<float4*>(smem + kConstFloats);
-    float* tex = smem + kConstFloats + 8 * n;
+    const AaRects<true> recs =
+        stage_aa_rects<true>(smem + kConstFloats, table, n);
     const int t = threadIdx.x;
     if (t < 6) {
       const int a = t >> 1;
@@ -621,27 +806,17 @@ __device__ __forceinline__ Rects<kSmem> stage_scene(
       store_basis(c + C_EMB, basis_of(em[9], em[10], em[11]));
     }
     if (t < 16) c[C_EM + t] = em[t];
-    for (int j = t; j < n; j += blockDim.x) {
-      rec[2 * j] = make_float4(table[A_O * n + j], table[A_SN * n + j],
-                               table[A_CU * n + j], table[A_WS * n + j]);
-      rec[2 * j + 1] =
-          make_float4(table[A_CV * n + j], table[A_HS * n + j],
-                      table[A_WLEN * n + j], table[A_HLEN * n + j]);
-      for (int k = 0; k < F_AA - A_BASE; ++k) {
-        tex[k * n + j] = table[(A_BASE + k) * n + j];
-      }
-    }
     __syncthreads();
     bool ok = true;
     for (int j = t; j < n; j += blockDim.x) {
-      const float sn = rec[2 * j].y;
-      const int a = axis_of(j, P);
+      const float sn = recs.rec[2 * j].y;
+      const int a = axis_of(j, P.g0, P.g1);
       ok = ok && same_bits(basis_of(a == 0 ? sn : 0.0f, a == 1 ? sn : 0.0f,
                                     a == 2 ? sn : 0.0f),
                            c + C_AXIS + 6 * (2 * a + (sn < 0.0f)));
     }
     const bool exact = __syncthreads_and(ok) != 0;
-    return Rects<true>{c, rec, tex, n, exact};
+    return Rects<true>{recs, c, exact};
   }
 }
 
@@ -664,85 +839,21 @@ __device__ __forceinline__ void trace_photon(const Scene& R,
                  dirz, cr, cg, cb);
 
   const int D = P.max_depth;
-  const int counts[3] = {P.g0, P.g1, P.g2};
   for (int d = 0; d < D; ++d) {
     const auto bd = bounce_draws(draws, d);   // before the rect loop
     const float pos[3] = {px, py, pz};
     const float dr[3] = {dirx, diry, dirz};
-    // division by zero gives inf; the bounds test rejects those rects.
-    // aa_nearest.cuh (aa_nearest_hit) repeats this rect loop for the AO
-    // and radiosity kernels on the [F_AA][N] rows, and
-    // trace_deposits_narrow.cu the general one: the three rules (the
-    // NaN-false compare chain, the strict `<`, the texel formula) hold in
-    // all of them.
-    const float inv[3] = {1.0f / dirx, 1.0f / diry, 1.0f / dirz};
-
-    // Rect loop: only the running minimum and its column are kept, with
-    // selects; the winner's texel comes after the loop. A strict `<` keeps
-    // the first of equal minima, the JAX kernel's tie break
-    // (photon_pallas_wide.py:384-406).
-    float best = kMiss;
-    int bj = 0;
-    int start = 0;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const int au = (a == 0) ? 1 : 0;
-      const int av = (a == 2) ? 1 : 2;
-      const float pa = pos[a], ia = inv[a];
-      const float pu = pos[au], du = dr[au];
-      const float pv = pos[av], dv = dr[av];
-      const bool da_neg = dr[a] < 0.0f;
-      const int end = start + counts[a];
-#pragma unroll Scene::kUnroll
-      for (int j = start; j < end; ++j) {
-        float4 r0, r1;  // {O, SN, CU, WS}, {CV, HS, WLEN, HLEN}
-        R.loop(j, r0, r1);
-        const float fac = (r0.x - pa) * ia;
-        const float u = (pu + du * fac - r0.z) * r0.w;
-        const float v = (pv + dv * fac - r1.x) * r1.y;
-        // NaN handling in the bounds test (note 1): the JAX kernel writes
-        // min(min(fac,u), min(wlen-u, min(v, hlen-v))) >= 0 and relies on
-        // jnp.minimum propagating NaN (0 * inf from 1/dir). fminf drops
-        // NaN and would accept the hit; this compare chain is false on
-        // NaN, as the min-tree is. `u <= wlen` is `wlen - u >= 0` for a
-        // finite wlen (IEEE subtraction without flush to zero is exact in
-        // sign), and (valid ? fac : MISS) < best is `valid && fac < best`
-        // while best <= MISS.
-        const bool hit = (da_neg != (r0.y < 0.0f)) && fac >= 0.0f &&
-                         u >= 0.0f && u <= r1.z && v >= 0.0f && v <= r1.w &&
-                         fac < best;
-        best = hit ? fac : best;
-        bj = hit ? j : bj;
-      }
-      start = end;
-    }
+    int bj;
+    const float best = nearest_rect(R, P.g0, P.g1, P.g2, pos, dr, bj);
 
     // Order within a bounce (note 5): alive *= hit comes before this
     // bounce's deposit, so a miss deposits nothing now or later.
     if (!(best < kHitBelow)) break;
 
-    // The winner: its axis (its group), its sign, and its texel from the
-    // u and v of the loop, recomputed from the same floats at fac = best.
-    // Texel ids (note 7): base + ty*wt + tx with tx = min(floor(u * ktu),
-    // wt - 1), ty = min(floor(v * ktv), ht - 1), as int32; below 2^24 they
-    // equal the JAX kernel's f32 ids.
-    const int baxis = axis_of(bj, P);
-    float4 r0, r1;
-    R.loop(bj, r0, r1);
-    const float bsign = r0.y;
-    const float pu = (baxis == 0) ? py : px;
-    const float du = (baxis == 0) ? diry : dirx;
-    const float pv = (baxis == 2) ? py : pz;
-    const float dv = (baxis == 2) ? diry : dirz;
-    const float u = (pu + du * best - r0.z) * r0.w;
-    const float v = (pv + dv * best - r1.x) * r1.y;
-    const float wt = R.field(A_WT, bj);
-    const float tx = fminf(floorf(u * R.field(A_KTU, bj)), wt - 1.0f);
-    const float ty = fminf(floorf(v * R.field(A_KTV, bj)),
-                           R.field(A_HT, bj) - 1.0f);
-    const int btex = static_cast<int>(R.field(A_BASE, bj)) +
-                     static_cast<int>(ty) * static_cast<int>(wt) +
-                     static_cast<int>(tx);
+    // the winner: its axis (its group), its sign and its texel
+    const int baxis = axis_of(bj, P.g0, P.g1);
+    float bsign;
+    const int btex = winner_texel(R, bj, baxis, best, pos, dr, bsign);
 
     px = px + dirx * best;
     py = py + diry * best;

@@ -26,7 +26,7 @@ from ..ops.aa_scene import AARects
 from ..ops.geosphere import geosphere
 from ..scene.geometry import Scene
 from ..scene.rectangle import Rect, num_tiles
-from ..utils.cuda_build import launch
+from ..utils.cuda_build import launch, table_plan
 
 f32 = np.float32
 NUDGE = float(f32(1e-5))       # ray origins start 1e-5 along the direction
@@ -194,6 +194,14 @@ def ao_fused(fields: torch.Tensor, group_counts, centers: torch.Tensor,
 
 
 ao_fused.launches = 0
+
+
+def ao_fused_plan(n_rects: int, device="cuda") -> dict:
+    """What `ao_fused` launches for a table of n_rects rects on CUDA device
+    `device`, as csrc/ao_fused.cu chooses it (fm_ao_fused_plan): instance
+    ("shared" or "device"), shared_bytes, registers, blocks_per_sm. It asks
+    the kernel library, so it needs the CUDA build; a CUDA error raises."""
+    return table_plan("fm_ao_fused_plan", device, n_rects)
 
 
 # --------------------------------------------------------------------------

@@ -45,7 +45,8 @@ wrapper launches its kernel for CUDA tensors and runs the plain version
 `ops/splat.fused_splat_plain` or `fold_plain`) for CPU tensors only. The
 kernels stage the scene table in shared memory, or read it from device
 memory when it does not fit, so no scene is refused for its rect count;
-only the fold's own shared buffers cap it (`fold_max_rects`).
+the fold sums a table past its per-warp rows' room in passes over slot
+ranges (`fold_pass_slots`).
 """
 from __future__ import annotations
 
@@ -64,7 +65,7 @@ from ..ops.splat import (
     STREAM_MODES, fixed_point_scale, fused_splat_plain, splat_color_scale,
     splat_stream, stream_bound,
 )
-from ..utils.cuda_build import SMEM_LIMIT, check_smem, launch
+from ..utils.cuda_build import SMEM_LIMIT, launch
 
 THREADS = 256                      # photons per CUDA block
 WARPS = THREADS // 32
@@ -765,19 +766,23 @@ trace_splat_wide_diff_f32.launches = 0
 
 
 def fold_smem_bytes(n_rects: int, max_depth: int) -> int:
-    """Shared memory of the fold kernel: scene table, albedo row and one
-    [N] row per warp, plus w and slot of every (bounce, photon)."""
+    """Shared memory of one pass of the fold kernel over n_rects slots:
+    scene table, albedo row and one [N] row per warp, plus w and slot of
+    every (bounce, photon)."""
     return 4 * ((F_AA + 1 + WARPS) * n_rects + 2 * max_depth * THREADS)
 
 
-def fold_max_rects(max_depth: int) -> int:
-    """The most rect slots the fold takes: its per-warp [N] rows and the
-    w and slot buffers in shared memory (the table and albedo row move to
-    device memory when they do not fit beside them): 6,752 at depth 8."""
+def fold_pass_slots(max_depth: int) -> int:
+    """The most rect slots one pass of the fold sums: its per-warp rows
+    beside the w and slot buffers in a block's shared memory (the table and
+    albedo row move to device memory when they do not fit beside them):
+    6,752 at depth 8. A table of more slots is folded in passes over slot
+    ranges of at most this many (`pass_slots`, csrc/trace_fold_wide_rng.cu),
+    each a replay of the batch, which give the bits of one pass."""
     return (SMEM_LIMIT - 4 * 2 * int(max_depth) * THREADS) // (4 * WARPS)
 
 
-def _check_fold(n, fields, albedo_aa, g_c, cfg, n_slots):
+def _check_fold(n, albedo_aa, g_c, n_slots):
     """The fold wrappers' own checks, after `_check_batch` gave the rect
     count n."""
     _check_albedo(albedo_aa, n)
@@ -785,9 +790,6 @@ def _check_fold(n, fields, albedo_aa, g_c, cfg, n_slots):
         raise ValueError(f"g_c must be [T, 3], got {tuple(g_c.shape)}")
     if int(n_slots) != n:
         raise ValueError(f"n_slots={n_slots}, but the table has {n} slots")
-    if fields.device.type != "cpu":
-        check_smem("the fold", fold_smem_bytes(n, cfg.max_depth)
-                   - 4 * (F_AA + 1) * n, n, fold_max_rects(cfg.max_depth))
 
 
 def _launch_fold(entry, fields, albedo_aa, em_vec, g_c, head, tail, n,
@@ -821,7 +823,7 @@ def trace_fold_wide_rng(
     launch raises. CPU tensors run the plain version (`fold_plain`)."""
     n = _check_batch(fields, group_counts, em_vec, n_valid, batch_size,
                      albedo_aa=albedo_aa, g_c=g_c)
-    _check_fold(n, fields, albedo_aa, g_c, cfg, n_slots)
+    _check_fold(n, albedo_aa, g_c, n_slots)
     if fields.device.type == "cpu":
         idx, col, ridx = trace_deposits_rng_plain(
             fields, group_counts, em_vec, seed, n_valid, batch_size, cfg,
@@ -854,7 +856,7 @@ def trace_fold_wide(
     CPU tensors run the plain version (`fold_plain`)."""
     n, B = _check_uniforms(fields, group_counts, em_vec, uniforms, n_valid,
                            cfg, albedo_aa=albedo_aa, g_c=g_c)
-    _check_fold(n, fields, albedo_aa, g_c, cfg, n_slots)
+    _check_fold(n, albedo_aa, g_c, n_slots)
     u = uniforms.t()
     if fields.device.type == "cpu":
         idx, col, ridx = trace_uniforms_plain(fields, group_counts, em_vec, u,

@@ -4,7 +4,7 @@ and hit texel id, over the [F_AA, N] scene table.
 Counterpart of flatmatch_tpu/ops/aa_query.py (`aa_nearest`) and of
 flatmatch_tpu/engines/ao_pallas.py `nearest_distances`. Both wrappers launch
 `csrc/aa_nearest.cu` for CUDA tensors (one thread per ray; the rect loop is
-`csrc/aa_nearest.cuh`, the semantics of the photon trace's) and run the plain
+the photon trace's, `nearest_rect` in `csrc/trace_wide.cuh`) and run the plain
 PyTorch version for CPU tensors only. `nearest_hit` is that plain rect loop,
 shared with the photon engine's plain trace (engines/photon_wide.py).
 """
@@ -17,7 +17,7 @@ from .aa_scene import (
     A_BASE, A_CU, A_CV, A_HLEN, A_HS, A_HT, A_KTU, A_KTV, A_O, A_SN, A_WLEN,
     A_WS, A_WT, F_AA, GROUP_UV,
 )
-from ..utils.cuda_build import launch
+from ..utils.cuda_build import launch, table_plan
 
 MISS = 1e30
 PLAIN_RAYS = 1 << 17        # rays per step of the plain versions
@@ -190,3 +190,12 @@ def nearest_distances(fields: torch.Tensor, group_counts,
 
 
 nearest_distances.launches = 0
+
+
+def nearest_plan(n_rects: int, tex: bool = True, device="cuda") -> dict:
+    """What `aa_nearest` (tex) or `nearest_distances` launches for a table
+    of n_rects rects on CUDA device `device`, as csrc/aa_nearest.cu
+    chooses it (fm_nearest_plan): instance ("shared" or "device"),
+    shared_bytes, registers, blocks_per_sm. It asks the kernel library, so
+    it needs the CUDA build; a CUDA error raises."""
+    return table_plan("fm_nearest_plan", device, int(bool(tex)), n_rects)

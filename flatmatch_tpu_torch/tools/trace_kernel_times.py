@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the photon trace kernels, the stream splats and the threefry draws
-of checkouts of the port on one card, and digest their outputs.
+"""Time the photon trace kernels, the nearest-hit kernels, the stream
+splats and the threefry draws of checkouts of the port on one card, and
+digest their outputs.
 
     python3 flatmatch_tpu_torch/tools/trace_kernel_times.py \
         [--scenes mini,4x4,13x13] [--placements K] [--kernels A,B,...] \
-        [--routes] ROOT[+VARIANT] [ROOT[+VARIANT] ...]
+        [--routes] [--ao-walls K] ROOT[+VARIANT] [ROOT[+VARIANT] ...]
 
 Each ROOT is a checkout of this repository (for example a `git archive` of
 another commit unpacked into a directory that .gitignore lists);
@@ -34,6 +35,12 @@ the host microseconds per call of
 - the threefry draws: the scene's last photon batch flat (`threefry_flat`)
   and transposed to [U, B] (`threefry_t`), and radiosity's first chunk of
   the scene's first wall (`threefry_radiosity`);
+- the nearest-hit kernels (rows 12-14) on the inputs
+  chip_smoke.nearest_inputs makes at the CLI's defaults: `aa_nearest` on
+  the first form-factor chunk of wall 0 (512 texels x 10,000 rays) over
+  radiosity's extended table, `nearest_distances` on the chunked AO's first
+  launch, `ao_fused` on the fused AO's whole pass (on 13x13 its first
+  NEAREST_AO_TEXELS_13 texels: the whole pass takes seconds);
 on batch 0 of `tests/fixtures/mini.png`, of mini tiled 4x4 and of mini
 tiled 13x13 (a table past shared memory: the device-memory instances) at
 the CLI's defaults (or the scenes --scenes names), and the SHA-256 of each
@@ -53,7 +60,14 @@ the threefry draws (`routes`: renders of mini through the stream tiers,
 general engine, a short `scatter` fit's losses and parameters) and the
 wall seconds of three renders (rotated mini and mini tiled 4x4 and turned
 30 degrees through the narrow route, mini through `--splat fused_i8`) are
-added. It needs a CUDA device and imports no JAX.
+added, and the lightmaps and wall seconds of mini and the 4x4 tiling
+through `--engine radiosity` and `--engine ambient_occlusion` (fused and
+`--ao-chunked`), the routes of rows 12-14. With --ao-walls K, each root
+runs only the AO of the 4x4 tiling, fused and chunked: a digest of each,
+K wall seconds of each in turns, and one profiled render of each (the
+card's ms by kernel group and busy share); give the roots in turns (A B B
+A ...) to compare the walls of two commits. It needs a CUDA device and
+imports no JAX.
 """
 import hashlib
 import json
@@ -72,11 +86,15 @@ FIXTURES = REPO / "tests" / "fixtures"
 # (the stream splats and the draws: STREAM_REPS on every scene)
 REPS = {"mini": 200, "4x4": 50, "13x13": 2}
 STREAM_REPS = 100
+# the nearest-hit kernels' launches per timed run (a 5.12M-ray chunk, a
+# 2.1M-ray launch, a whole AO pass)
+NEAREST_REPS = {"mini": 50, "4x4": 10, "13x13": 2}
+NEAREST_AO_TEXELS_13 = 16384
+NEAREST_KERNELS = ("aa_nearest", "nearest_distances", "ao_fused")
 ROUNDS = 5
 
 # ablations: (file under flatmatch_tpu_torch/, text, replacement) edits
-# that undo one design choice of row 11, 15 or 16 or of the threefry
-# kernel
+# that undo one design choice of rows 11-16 or of the threefry kernel
 _TF_FLAT = """  const uint32_t stride = gridDim.x * kTfThreads;
   for (uint32_t j = blockIdx.x * kTfThreads + threadIdx.x; j < m;
        j += stride) {
@@ -117,7 +135,123 @@ int launch_splat(const int* idx, const float* col, int* acc, int rows,
 }
 
 // Splat, then finish into"""
+_NEAREST = "csrc/aa_nearest.cu"
+_AO = "csrc/ao_fused.cu"
+_TRACE = "csrc/trace_wide.cuh"
+_AO_LOOP = "    for (int k = j; k < k_pad; k += kAoThreads) {\n"
+# rows 12-14 reading the [13, N] rows staged as they are, eight scalar
+# loads a rect test (the first port's layout)
+_ROWS = """#include "trace_wide.cuh"
+
+namespace {
+
+struct RowRects {
+  static constexpr int kUnroll = 8;
+  const float* s;
+  int n;
+  __device__ __forceinline__ void loop(int j, float4& a, float4& b) const {
+    a = make_float4(s[A_O * n + j], s[A_SN * n + j], s[A_CU * n + j],
+                    s[A_WS * n + j]);
+    b = make_float4(s[A_CV * n + j], s[A_HS * n + j], s[A_WLEN * n + j],
+                    s[A_HLEN * n + j]);
+  }
+  __device__ __forceinline__ float field(int row, int j) const {
+    return s[row * n + j];
+  }
+};
+
+template <bool kSmem>
+__device__ __forceinline__ auto stage_rows(float* smem,
+                                           const float* __restrict__ table,
+                                           int n) {
+  if constexpr (!kSmem) {
+    return AaRects<false>{table, n};
+  } else {
+    stage(smem, table, F_AA * n);
+    return RowRects{smem, n};
+  }
+}
+
+}  // namespace
+"""
+_ROWS_EDITS = [(f, old, new) for f in (_NEAREST, _AO) for old, new in (
+    ('#include "trace_wide.cuh"\n', _ROWS),
+    ("  const AaRects<kSmem> rects = stage_aa_rects<kSmem>(smem, scene, N);",
+     "  const auto rects = stage_rows<kSmem>(smem, scene, N);"))]
+# row 14's texel id worked out inside the loop whenever the minimum
+# improves (the first port's branch): nearest_rect writes it through a
+# pointer that only row 14 passes
+_TEX_IN_LOOP = [
+    (_TRACE, "const float dr[3], int& bj) {",
+     "const float dr[3], int& bj,\n    int* btex = nullptr) {"),
+    (_TRACE, "      bj = hit ? j : bj;\n", """      bj = hit ? j : bj;
+      if (btex && hit) {
+        const float wt = R.field(A_WT, j);
+        const float tx = fminf(floorf(u * R.field(A_KTU, j)), wt - 1.0f);
+        const float ty = fminf(floorf(v * R.field(A_KTV, j)),
+                               R.field(A_HT, j) - 1.0f);
+        *btex = static_cast<int>(R.field(A_BASE, j)) +
+                static_cast<int>(ty) * static_cast<int>(wt) +
+                static_cast<int>(tx);
+      }
+"""),
+    (_NEAREST, "    int bj;\n    const float best = nearest_rect(rects, g0, g1, "
+     "g2, pos, dr, bj);", "    int bj, btex;\n    const float best = "
+     "nearest_rect(rects, g0, g1, g2, pos, dr, bj,\n"
+     "                                    kTex ? &btex : nullptr);"),
+    (_NEAREST, """      float bsign;
+      tex[i] = hit ? winner_texel(rects, bj, axis_of(bj, g0, g1), best, pos,
+                                  dr, bsign)
+                   : -1;""", "      tex[i] = hit ? btex : -1;"),
+]
+# the trace's rect loop apart from the nearest-hit kernels': its own
+# instance of nearest_rect
+_LOOPS_APART = [
+    (_TRACE, "template <class Scene>\n__device__ __forceinline__ float "
+     "nearest_rect(", "template <class Scene, int kCopy = 0>\n"
+     "__device__ __forceinline__ float nearest_rect("),
+    (_TRACE, "    const float best = nearest_rect(R, P.g0, P.g1, P.g2, pos, "
+     "dr, bj);", "    const float best = nearest_rect<Scene, 1>(R, P.g0, "
+     "P.g1, P.g2, pos, dr, bj);"),
+]
 VARIANTS = {
+    # rows 12-14: the [13, N] rows, no records
+    "nearest_rows": _ROWS_EDITS,
+    # row 14: the texel inside the loop
+    "nearest_tex_in_loop": _TEX_IN_LOOP,
+    # the shared-memory loop (rows 1-10 and 12-14) unrolled 1, 2 or 4
+    # times (the design: 8)
+    **{f"nearest_unroll{k}": [(_TRACE, "static constexpr int kUnroll = 8;",
+                               f"static constexpr int kUnroll = {k};")]
+       for k in (1, 2, 4)},
+    # row 12's 128 partials added in a shared-memory tree, seven barriers
+    "ao_smem_tree": [(_AO, """    if (j < 64) red[j] = red[j] + red[j + 64];
+    __syncthreads();
+    if (j < 32) {
+      float v = red[j] + red[j + 32];
+#pragma unroll
+      for (int w = 16; w > 0; w >>= 1) {
+        v = v + __shfl_down_sync(0xffffffffu, v, w);
+      }
+      if (j == 0) sums[t] = v;
+    }
+""", """    for (int w = kAoThreads / 2; w > 0; w >>= 1) {
+      if (j < w) red[j] = red[j] + red[j + w];
+      __syncthreads();
+    }
+    if (j == 0) sums[t] = red[0];
+""")],
+    # row 12 skipping the padded directions (weight 0), which add exactly
+    # +0.0 (the same bits while sky is finite)
+    "ao_skip_padded": [(_AO, _AO_LOOP,
+                        _AO_LOOP + "      if (fac[k] == 0.0f) continue;\n")],
+    # rows 12-14 on grids of at most 2,048 (the first port's cap) or 8,192
+    # blocks (the design: 32,768)
+    **{f"nearest_cap{n}": [(_TRACE, "constexpr int kStrideBlocks = 32768;",
+                            f"constexpr int kStrideBlocks = {n};")]
+       for n in (2048, 8192)},
+    # the trace's rect loop apart from the nearest-hit kernels' (rows 1-10)
+    "loops_apart": _LOOPS_APART,
     # row 11: the [18, N] rows staged as they are, fifteen scalar loads a
     # rect test
     "narrow_scalar": [
@@ -366,6 +500,29 @@ def stream_calls(sp, threefry, cfg, rad, idx, col, T, gb, chunk, lm0):
     }
 
 
+def nearest_calls(smoke, scene, dev, name):
+    """name -> call of the nearest-hit kernels (rows 12-14) on the inputs
+    of chip_smoke.nearest_inputs at the CLI's defaults."""
+    from flatmatch_tpu_torch.config import DEFAULT_CONFIG
+    from flatmatch_tpu_torch.engines import ao
+    from flatmatch_tpu_torch.ops import aa_query
+
+    inp = smoke.nearest_inputs(scene, dev, DEFAULT_CONFIG)
+    ext, aa = inp["aa_ext"], inp["aa"]
+    centers, walls, dirs, fac = inp["fused"]
+    if name == "13x13":
+        centers = centers[:NEAREST_AO_TEXELS_13]
+        walls = walls[:NEAREST_AO_TEXELS_13]
+    return {
+        "aa_nearest": lambda: aa_query.aa_nearest(
+            ext.fields, ext.group_counts, inp["src"], inp["direc"]),
+        "nearest_distances": lambda: aa_query.nearest_distances(
+            aa.fields, aa.group_counts, inp["origins"], inp["dirs"], 10.0),
+        "ao_fused": lambda: ao.ao_fused(aa.fields, aa.group_counts, centers,
+                                        walls, dirs, fac, 10.0),
+    }
+
+
 UNIFORM_KERNELS = ("trace_deposits_wide", "trace_splat_wide_i8",
                    "trace_splat_wide_f32", "trace_deposits_wide_diff",
                    "trace_splat_wide_diff_i8", "trace_splat_wide_diff_f32",
@@ -448,11 +605,57 @@ def routes(dev, mini, tiled4, rotated_scene):
     scene4, _ = compile_scene(str(tiled4), 30.0, base)
     res["render_rotated_4x4"] = digest(torch.from_numpy(wall(
         "render_rotated_4x4", rotated_scene(scene4, 30), base)))
+    # the nearest-hit routes (rows 12-14): radiosity and AO, fused and
+    # chunked, of mini and the 4x4 tiling, each digested, then timed again
+    ao_cfg = base.replace(engine=Engine.AMBIENT_OCCLUSION)
+    engines = {
+        "radiosity": base.replace(engine=Engine.RADIOSITY),
+        "ao_fused": ao_cfg,
+        "ao_chunked": ao_cfg.replace(ao=dataclasses.replace(base.ao,
+                                                            fused=False)),
+    }
+    for sname, sc in (("mini", scene), ("4x4", scene4)):
+        for ename, c in engines.items():
+            key = f"render_{sname}_{ename}"
+            res[key] = digest(torch.from_numpy(run_engine(sc, c, dev)))
+            wall(key, sc, c)
     return res, seconds
 
 
+def ao_walls(dev, tiled4, reps, profiled):
+    """The AO of the 4x4 tiling through run_engine, fused and
+    `--ao-chunked`: each rendered and digested once, then `reps` times
+    each in turns (wall seconds a render), then once more each under
+    chip_smoke.profiled (the card's ms by kernel group and its busy share
+    of the wall: the rest of the wall is the host's)."""
+    import dataclasses
+
+    import torch
+
+    from flatmatch_tpu_torch.config import DEFAULT_CONFIG, Engine
+    from flatmatch_tpu_torch.render import compile_scene, run_engine
+
+    fused = DEFAULT_CONFIG.replace(engine=Engine.AMBIENT_OCCLUSION)
+    cfgs = {"fused": fused, "chunked": fused.replace(
+        ao=dataclasses.replace(fused.ao, fused=False))}
+    scene, _ = compile_scene(str(tiled4), 30.0, DEFAULT_CONFIG)
+    sha = {f"render_4x4_ao_{k}": digest(torch.from_numpy(
+        run_engine(scene, c, dev))) for k, c in cfgs.items()}
+    walls = {k: [] for k in cfgs}
+    for _ in range(reps):
+        for k, c in cfgs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_engine(scene, c, dev)
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+    prof = {k: profiled(lambda c=c: run_engine(scene, c, dev))
+            for k, c in cfgs.items()}
+    return sha, walls, prof
+
+
 def measure(root: str, names, placements=0, kernels=None,
-            with_routes=False) -> dict:
+            with_routes=False, ao_reps=0) -> dict:
     sys.path.insert(0, root)
     import dataclasses
     import importlib.util
@@ -490,6 +693,10 @@ def measure(root: str, names, placements=0, kernels=None,
             scenes[f"{k}x{k}"] = pathlib.Path(tmp) / f"mini_{k}x{k}.png"
             make_layout.tiled(str(scenes["mini"]), str(scenes[f"{k}x{k}"]),
                               k, k)
+        if ao_reps:
+            out["sha256"]["routes"], out["ao_walls_s"], out["ao_profile"] = \
+                ao_walls(dev, scenes["4x4"], ao_reps, smoke.profiled)
+            return out
         for name in names:
             png = scenes[name]
             scene, _ = compile_scene(str(png), 30.0, DEFAULT_CONFIG)
@@ -531,6 +738,8 @@ def measure(root: str, names, placements=0, kernels=None,
             stream = stream_calls(sp, threefry, cfg, DEFAULT_CONFIG.radiosity,
                                   idx, col, T, last, chunk, lm0)
             fns.update(stream)
+            if not kernels or set(kernels) & set(NEAREST_KERNELS):
+                fns.update(nearest_calls(smoke, scene, dev, name))
             if kernels:
                 fns = {k: fn for k, fn in fns.items() if k in kernels}
             out["sha256"][name] = {k: digest(fn()) for k, fn in fns.items()}
@@ -538,7 +747,9 @@ def measure(root: str, names, placements=0, kernels=None,
             for _ in range(ROUNDS):
                 for k, fn in fns.items():
                     runs[k].append(device_ms(
-                        fn, STREAM_REPS if k in stream else REPS[name]))
+                        fn, STREAM_REPS if k in stream else
+                        NEAREST_REPS[name] if k in NEAREST_KERNELS else
+                        REPS[name]))
             out[name] = {k: statistics.median(v[0] for v in runs[k])
                          for k in runs}
             out[f"{name}_host_us"] = {
@@ -563,7 +774,7 @@ def measure(root: str, names, placements=0, kernels=None,
 
 def main(argv):
     opts = {"--scenes": "mini,4x4,13x13", "--placements": "0",
-            "--kernels": ""}
+            "--kernels": "", "--ao-walls": "0"}
     with_routes = False
     while argv and (argv[0] in opts or argv[0] == "--routes"):
         if argv[0] == "--routes":
@@ -574,9 +785,10 @@ def main(argv):
     scenes = opts["--scenes"]
     placements = int(opts["--placements"])
     kernels = [k for k in opts["--kernels"].split(",") if k]
+    ao_reps = int(opts["--ao-walls"])
     if len(argv) == 2 and argv[0] == "--one":
         print(json.dumps(measure(argv[1], scenes.split(","), placements,
-                                 kernels, with_routes)), flush=True)
+                                 kernels, with_routes, ao_reps)), flush=True)
         return 0
     variants = {r.rpartition("+")[2] for r in argv if "+" in r}
     if (not argv or not set(scenes.split(",")) <= set(REPS)
@@ -591,7 +803,8 @@ def main(argv):
                 root = variant_root(root, variant, tmp)
             cmd = [sys.executable, __file__, "--scenes", scenes,
                    "--placements", str(placements), "--kernels",
-                   ",".join(kernels)] + (["--routes"] if with_routes else [])
+                   ",".join(kernels), "--ao-walls", str(ao_reps)] + (
+                       ["--routes"] if with_routes else [])
             res = subprocess.run(cmd + ["--one", root], capture_output=True,
                                  text=True, timeout=900)
         if res.returncode != 0:

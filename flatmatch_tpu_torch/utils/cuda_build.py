@@ -7,10 +7,7 @@ library with a plain C interface, loaded through ctypes. The library goes to
 the headers and the flags, so an edit of any rebuilds it on first use and a
 fresh checkout builds it without a separate step. Nothing here runs when a
 module is imported. `launch` calls an entry point on PyTorch's current
-stream and raises on a CUDA error; `check_smem` refuses a launch whose
-shared buffers (beyond the scene table, which the kernels read from device
-memory when it does not fit: launch_table in csrc/trace_wide.cuh) are too
-large for a block.
+stream and raises on a CUDA error.
 """
 from __future__ import annotations
 
@@ -66,6 +63,8 @@ ENTRY_POINTS = {
     "fm_fused_splat_i8_plan": [_I, _P, _P],
     "fm_trace_deposits_narrow": [_P] * 5 + [_I] * 4 + [_F] * 9 + [_P],
     "fm_trace_deposits_narrow_plan": [_I, _I, _P, _P],
+    "fm_nearest_plan": [_I, _I, _P, _P, _P, _P],
+    "fm_ao_fused_plan": [_I, _P, _P, _P, _P],
     "fm_threefry_uniform": [_U32, _U32, _I64, _P, _P],
     "fm_threefry_uniform_t": [_U32, _U32, _I, _I, _P, _P],
 }
@@ -175,14 +174,24 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def check_smem(kernel: str, nbytes: int, n_rects: int, cap: int = None):
-    """Raise if a kernel's shared buffers would need more shared memory than
-    a block has; `cap`, if given, is the largest rect count that fits."""
-    if nbytes > SMEM_LIMIT:
-        most = "" if cap is None else f" (at most {cap} rects)"
-        raise ValueError(f"{n_rects} rects need {nbytes} bytes of shared "
-                         f"memory in {kernel}; a block has {SMEM_LIMIT}"
-                         f"{most}; see ROADMAP.md")
+def table_plan(name: str, dev, *args) -> dict:
+    """What a kernel that keeps the scene table in shared memory or device
+    memory (csrc/trace_wide.cuh launch_table) launches on CUDA device
+    `dev`, from its C query `name` with the int arguments `args`:
+    instance ("shared" or "device"), shared_bytes (dynamic and static),
+    registers and blocks_per_sm (the occupancy calculator). No launch;
+    raises on a non-zero CUDA error."""
+    import torch
+
+    outs = [ctypes.c_int() for _ in range(4)]
+    with torch.cuda.device(dev):
+        err = getattr(load_library(), name)(
+            *(int(a) for a in args), *(ctypes.byref(o) for o in outs))
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+    in_smem, smem, regs, blocks = (o.value for o in outs)
+    return dict(instance="shared" if in_smem else "device",
+                shared_bytes=smem, registers=regs, blocks_per_sm=blocks)
 
 
 def launch(name: str, dev, *args):

@@ -1438,20 +1438,136 @@ def test_kernels_past_the_old_shared_memory_cap(dev):
 
 
 @pytest.mark.cuda
-def test_fold_refuses_past_its_cap(dev):
-    """The fold's per-warp rows cap it at fold_max_rects (6,752 at depth
-    8); past that it raises naming the cap, before any launch."""
-    aa_c, T, alb, ev, _ = _diff_inputs("tiny", dev)
-    k = -(-(pw.fold_max_rects(8) + 1) // aa_c.fields.shape[1])
-    big, gc = _big_table(aa_c, k)
+@pytest.mark.parametrize("kernel", ["trace_fold_wide_rng", "trace_fold_wide"])
+def test_fold_past_the_old_cap(dev, kernel):
+    """tiny's table with 3,380 rects that are never hit (a far edge below
+    0) in front of its x group and of its z group (6,773 slots, past the
+    6,752 whose per-warp rows fit in a block at depth 8, with real rects in
+    both passes): the fold runs in two passes over slot ranges, equals its
+    plain version at the fold band (rtol 1e-4), and two runs give the same
+    bits; one launch is counted a call."""
+    from flatmatch_tpu_torch.ops import threefry
+    from flatmatch_tpu_torch.ops.aa_scene import A_WLEN
+
+    aa_c, T, _, ev, _ = _diff_inputs("tiny", dev)
+    g0, g1, g2 = (int(c) for c in aa_c.group_counts)
+    pad = aa_c.fields[:, :1].repeat(1, 3380)
+    pad[A_WLEN] = -1.0
+    big = torch.cat([pad, aa_c.fields[:, :g0 + g1], pad,
+                     aa_c.fields[:, g0 + g1:]], 1).contiguous()
+    gc = (3380 + g0, g1, 3380 + g2)
     n = big.shape[1]
-    g = torch.ones((T, 3), device=dev)
-    before = pw.trace_fold_wide_rng.launches
-    with pytest.raises(ValueError, match=f"at most {pw.fold_max_rects(8)}"):
-        pw.trace_fold_wide_rng(big, gc, alb.repeat_interleave(k)
-                               .contiguous(), ev, g, 0, 8, 8, CFG.photon, n)
-    assert pw.trace_fold_wide_rng.launches == before
-    assert pw.fold_max_rects(8) == 6752
+    second = pw.fold_pass_slots(8)
+    assert second < n <= 2 * second                 # two passes
+    alb_big = torch.from_numpy(np.random.RandomState(3).uniform(
+        0.4, 0.95, n).astype(np.float32)).to(dev)
+    cfg = CFG.photon
+    B, nv = 512, 500
+    g = torch.from_numpy(np.random.RandomState(5).rand(T, 3)
+                         .astype(np.float32)).to(dev)
+    if kernel == "trace_fold_wide_rng":
+        seed = rng.batch_seed(cfg.seed, 3)
+
+        def run():
+            return pw.trace_fold_wide_rng(big, gc, alb_big, ev, g, seed, nv,
+                                          B, cfg, n)
+        plain = pw.trace_deposits_rng_plain(big, gc, ev, seed, nv, B, cfg,
+                                            alb_big)
+    else:
+        u = threefry.batch_uniforms(cfg.seed, 3, B, 28, dev, transposed=True)
+
+        def run():
+            return pw.trace_fold_wide(big, gc, alb_big, ev, g, u, nv, cfg, n)
+        plain = pw.trace_uniforms_plain(big, gc, ev, u.t(), nv, cfg, alb_big)
+    wrapper = getattr(pw, kernel)
+    before = wrapper.launches
+    da, w = run()
+    da2, w2 = run()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert torch.equal(da, da2) and torch.equal(w, w2)
+    want_da, want_w = pw.fold_plain(*plain, g, n)
+    assert (want_da[second:] != 0).any() and (want_da[:second] != 0).any()
+    np.testing.assert_allclose(da.cpu().numpy(), want_da.cpu().numpy(),
+                               rtol=1e-4,
+                               atol=1e-6 * want_da.abs().max().item())
+    np.testing.assert_allclose(w.item(), want_w.item(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["aa_nearest", "nearest_distances",
+                                    "ao_fused"])
+def test_nearest_plan_follows_the_table_size(dev, kernel):
+    """The library's plan for rows 12-14 (launch_table's rule): the
+    shared-memory instance while the table's 52 bytes a rect (and row 12's
+    512-byte reduction buffer) fit in a block's 232,448 bytes, the
+    device-memory one past that; registers and blocks per SM from the
+    occupancy calculator."""
+    from flatmatch_tpu_torch.engines import ao
+    from flatmatch_tpu_torch.ops import aa_query
+
+    def plan(n):
+        if kernel == "ao_fused":
+            return ao.ao_fused_plan(n, dev)
+        return aa_query.nearest_plan(n, kernel == "aa_nearest", dev)
+
+    last = (232448 - (512 if kernel == "ao_fused" else 0)) // 52
+    for n, inst in ((27, "shared"), (last, "shared"), (last + 1, "device"),
+                    (4563, "device")):
+        p = plan(n)
+        assert p["instance"] == inst, (n, p)
+        extra = 512 if kernel == "ao_fused" else 0
+        assert p["shared_bytes"] == (52 * n if inst == "shared" else 0) + extra
+        assert p["registers"] > 0 and p["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["aa_nearest", "nearest_distances",
+                                    "ao_fused"])
+def test_nearest_kernels_on_a_table_past_shared_memory(dev, kernel):
+    """The nearest-hit kernels (rows 12-14) on mini's tables with every
+    rect repeated 200 times in place (past a block's shared memory: the
+    device-memory instance of the shared rect loop) against their plain
+    versions: ids and distances equal on every ray, the AO within rel 1e-5
+    with the same zeros; and, since a copy never wins the strict-< tie,
+    equal to the shared-memory instance on the unrepeated table."""
+    from flatmatch_tpu_torch.config import AoConfig
+    from flatmatch_tpu_torch.engines import ao
+    from flatmatch_tpu_torch.ops import aa_query
+
+    if kernel == "ao_fused":
+        scene, _ = compile_scene(str(FIXTURES / "mini.png"), 30.0, CFG)
+        aa = pack_aa(scene.walls, dev)
+        big, gc = _big_table(aa, 200)
+        assert 4 * 13 * big.shape[1] > 232448
+        centers, walls, dirs, fac, _, _ = ao._ao_fused_prep(
+            scene, AoConfig(geosphere_level=4))
+        args = [torch.from_numpy(x).to(dev) for x in (
+            centers[:96], walls[:96], dirs, fac)]
+        got = ao.ao_fused(big, gc, *args, 10.0)
+        want = ao.ao_fused_plain(big, gc, *args, 10.0)
+        nz = want != 0
+        assert nz.any() and torch.equal(got == 0, want == 0)
+        assert ((got[nz] - want[nz]).abs() / want[nz].abs()).max() <= 1e-5
+        assert torch.equal(got, ao.ao_fused(aa.fields, aa.group_counts,
+                                            *args, 10.0))
+        return
+    aa, o, d = _ff_chunk("mini", dev, texels=32, rays=128)
+    big, gc = _big_table(aa, 200)
+    assert 4 * 13 * big.shape[1] > 232448
+    if kernel == "aa_nearest":
+        dist, tex = aa_query.aa_nearest(big, gc, o, d)
+        pdist, ptex = aa_query.aa_nearest_plain(big, gc, o, d)
+        assert (tex >= 0).float().mean().item() > 0.5
+        assert torch.equal(tex, ptex) and torch.equal(dist, pdist)
+        sdist, stex = aa_query.aa_nearest(aa.fields, aa.group_counts, o, d)
+        assert torch.equal(tex, stex) and torch.equal(dist, sdist)
+    else:
+        got = aa_query.nearest_distances(big, gc, o, d, 10.0)
+        assert torch.equal(got, aa_query.nearest_distances_plain(
+            big, gc, o, d, 10.0))
+        assert torch.equal(got, aa_query.nearest_distances(
+            aa.fields, aa.group_counts, o, d, 10.0))
 
 
 @pytest.mark.cuda
