@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from flatmatch_tpu_torch/csrc and drives the port's
-eleven groups of paths on the card:
+twelve groups of paths on the card:
 - the render: the production kernel against its plain PyTorch version,
   `tests/fixtures/mini.png` through the port's CLI at its defaults, the
   physics against the reference C engine's golden lightmap, and a 4x4
@@ -85,7 +85,18 @@ eleven groups of paths on the card:
   reports, beside the 4x4 AO and radiosity walls; and the fold past its old cap of
   6,752 rect slots on mini tiled 16x16 (two passes over slot ranges)
   against its plain version, both draw sources, and one fit step there
-  (phase 39).
+  (phase 39);
+- the publishing path at the CLI's defaults: a straight, a checkpointed
+  and a killed-then-resumed render of the 4x4 tiling (row 1, through the
+  CLI; the killed one a child process stopped by
+  FLATMATCH_FAULT_EXIT_AFTER_CHECKPOINTS) and of rotated mini (rows 11
+  and 16), every .raw byte (every texel bit) equal, with their walls
+  (phase 40); `render --preview` of mini, a tile write per segment and
+  the straight render's tiles at the end (phase 41); `package` of mini
+  (its offer splices the fixtures verbatim) and of the 4x4 tiling, whose
+  tree the REST server serves from a thread and every route reads back
+  (phase 42); `debug` of mini on the card against the CPU, and `render
+  --profile` of mini, whose trace names the row-1 kernel (phase 43).
 The kernels line's times, and phases 12's, 17's, 30's and 37-39's
 kernel times, are device times
 (device_ms:
@@ -249,6 +260,10 @@ LANE_INSTR_PER_S = INT32_OPS_PER_S
 AA_RECT_TEST_INSTRUCTIONS = 19
 AA_RAY_INSTRUCTIONS = {"aa_nearest": 15 + 22, "nearest_distances": 15 + 2,
                        "ao_fused": 15 + 11}
+# The debug render of mini at the CLI's camera on the card against the
+# CPU: the pixels that must agree (tests/test_torch_debug.py holds the CPU
+# against the JAX package at the same share; every pixel agreed there)
+DEBUG_SHARE = 0.999
 
 
 def rotated_scene(scene, degrees):
@@ -3014,6 +3029,353 @@ def fold_past_the_cap_phase(dev, cfg, make_layout):
                  forward_ms=fwd, backward_ms=bwd, step_wall_s=wall))
 
 
+def cli_photon_cfg():
+    """The CLI's photon defaults: device RNG on, in-kernel 7-bit splat."""
+    from flatmatch_tpu_torch.config import DEFAULT_CONFIG
+
+    return DEFAULT_CONFIG.replace(photon=dataclasses.replace(
+        DEFAULT_CONFIG.photon, device_rng=True, splat="inkernel_i8"))
+
+
+def rotated_mini_texels(dev, checkpoint_path=None):
+    """Mini turned 30 degrees through `run_engine` at the CLI's defaults:
+    the narrow kernel (row 11), then the f32 stream splat (row 16). Also
+    the body of phase 40's killed child process."""
+    from flatmatch_tpu_torch.render import compile_scene, run_engine
+
+    cfg = cli_photon_cfg()
+    scene, _ = compile_scene(str(FIXTURES / "mini.png"), 30.0, cfg)
+    return run_engine(rotated_scene(scene, 30), cfg, dev, checkpoint_path)
+
+
+def killed_run(args, env_kill, timeout=600):
+    """Run `args` (a Python command line) in a child process from the
+    checkout's root with FLATMATCH_FAULT_EXIT_AFTER_CHECKPOINTS=env_kill:
+    its wall seconds. The child must exit with code 17, after its
+    env_kill-th checkpoint."""
+    import os
+
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
+        timeout=timeout,
+        env={**os.environ, "FLATMATCH_FAULT_EXIT_AFTER_CHECKPOINTS":
+             str(env_kill)})
+    wall = time.perf_counter() - t0
+    check(res.returncode == 17 and "FAULT INJECTION" in res.stderr,
+          f"killed run {args[:3]} exited {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    return wall
+
+
+def batches_before(counts, B, cursor):
+    """Batches of the schedule before checkpoint cursor (emitter, batch)."""
+    from flatmatch_tpu_torch.engines import photon_wide as pw
+
+    e0, b0 = cursor
+    return sum(nb if e < e0 else b0 if e == e0 else 0
+               for e, _, nb, _ in pw.emitter_schedule(counts, B))
+
+
+def segments_of(counts, B, every):
+    """Segments of `every` batches in the schedule (each emitter's batches
+    cut on their own); every=1 counts its batches."""
+    from flatmatch_tpu_torch.engines import photon_wide as pw
+
+    return sum(-(-nb // every) for _, _, nb, _ in
+               pw.emitter_schedule(counts, B))
+
+
+def raw_bytes(out):
+    return {p.name: p.read_bytes()
+            for p in sorted((out / "tiles").glob("tile_*.raw"))}
+
+
+def timed(fn):
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return time.perf_counter() - t0, out
+
+
+def publishing_phases(dev, make_layout):
+    """Phases 40-43: checkpoint and resume, previews, package and serve,
+    debug and the profiler, through the CLI at its defaults."""
+    import base64
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image
+
+    from flatmatch_tpu_torch import cli
+    from flatmatch_tpu_torch.io import rest
+    from flatmatch_tpu_torch.io import tiles as tiles_io
+    from flatmatch_tpu_torch.ops.device_scene import pack_emitters
+    from flatmatch_tpu_torch.render import compile_scene
+    from flatmatch_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = cli_photon_cfg()
+    ph = cfg.photon
+    B, every = ph.photons_per_batch, ph.checkpoint_every
+    mini = FIXTURES / "mini.png"
+    seconds = {}
+
+    def counts_of(png):
+        scene, _ = compile_scene(str(png), 30.0, cfg)
+        return scene, pack_emitters(scene, ph.samples_per_area,
+                                    ph.window_color, ph.light_color).counts
+
+    def cursor_of(path):
+        with np.load(path) as z:
+            return int(z["emitter_index"]), int(z["batch_index"])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        png4 = tmp / "mini_4x4.png"
+        make_layout.tiled(str(mini), str(png4), 4, 4)
+
+        # 40. a killed render resumes to the straight render's bits -------
+        t40 = time.perf_counter()
+        scene4, counts4 = counts_of(png4)
+        batches4 = segments_of(counts4, B, 1)
+        segs4 = segments_of(counts4, B, every)
+        kill4 = segs4 // 2
+        d = tmp / "40"
+        args4 = [str(png4), "30", "--dump-raw"]
+
+        def cli_run(name, *extra):
+            """(wall s, row 1's launches, .raw bytes) of one render."""
+            wall, got, out = cli_render([*args4, *extra], d / name,
+                                        len(scene4.walls))
+            return wall, got["trace_splat_wide_rng_i8"], raw_bytes(out)
+
+        w_straight, n_straight, want = cli_run("straight")
+        check(n_straight == batches4,
+              f"{n_straight} launches, {batches4} batches")
+        w_ck, n_ck, got = cli_run("ck", "--checkpoint", str(d / "full.npz"))
+        check(n_ck == batches4, f"checkpointed: {n_ck} launches")
+        check(got == want,
+              "4x4: the checkpointed render differs from the straight one")
+        with np.load(d / "full.npz") as z:
+            lm4 = z["lightmap"]
+        save_s, _ = timed(lambda: [ckpt.save(str(d / "probe.npz"), lm4, 0, 0,
+                                             "0" * 16) for _ in range(5)])
+        ck = str(d / "kill.npz")
+        w_killed = killed_run(["-m", "flatmatch_tpu_torch.cli", "render",
+                               *args4, "--checkpoint", ck, "--out",
+                               str(d / "killed")], kill4)
+        cursor = cursor_of(ck)
+        left = batches4 - batches_before(counts4, B, cursor)
+        w_resumed, n_resumed, got = cli_run("resumed", "--checkpoint", ck)
+        check(n_resumed == left,
+              f"resumed: {n_resumed} launches, {left} batches left")
+        check(got == want,
+              "4x4: the resumed render differs from the straight one")
+        r40 = {"4x4": dict(
+            route="trace_splat_wide_rng_i8 (row 1)", batches=batches4,
+            segments=segs4, checkpoint_save_ms=save_s / 5 * 1e3,
+            checkpoint_bytes=lm4.nbytes, killed_after_checkpoints=kill4,
+            cursor_at_kill=cursor, batches_resumed=left,
+            straight_wall_s=w_straight, checkpointed_wall_s=w_ck,
+            killed_process_wall_s=w_killed, resumed_wall_s=w_resumed,
+            raw_tiles_equal=len(want))}
+
+        scene_m, counts_m = counts_of(mini)
+        rcounts = pack_emitters(rotated_scene(scene_m, 30),
+                                ph.samples_per_area, ph.window_color,
+                                ph.light_color).counts
+
+        def lib_run(path=None):
+            reset_launches()
+            wall, tex = timed(lambda: rotated_mini_texels(dev, path))
+            got = read_launches()
+            return wall, tex, got["trace_deposits_narrow"], got["fused_splat"]
+
+        w_rs, tex_rs, n11, n16 = lib_run()
+        w_rck, tex_rck, _, _ = lib_run(str(d / "rfull.npz"))
+        check(tex_rck.tobytes() == tex_rs.tobytes(),
+              "rotated mini: the checkpointed render differs")
+        rck = str(d / "rkill.npz")
+        rsegs = segments_of(rcounts, B, every)
+        w_rkilled = killed_run(
+            ["-c", "import sys, chip_smoke; chip_smoke."
+             "rotated_mini_texels(sys.argv[1], sys.argv[2])", str(dev), rck],
+            max(1, rsegs // 2))
+        rcursor = cursor_of(rck)
+        w_rres, tex_rres, n11r, n16r = lib_run(rck)
+        check(tex_rres.tobytes() == tex_rs.tobytes(),
+              "rotated mini: the resumed render differs")
+        rbatches = segments_of(rcounts, B, 1)
+        rleft = rbatches - batches_before(rcounts, B, rcursor)
+        check(n11 == n16 == rbatches and n11r == n16r == rleft,
+              f"rotated mini launches: rows 11/16 {n11}/{n16} straight, "
+              f"{n11r}/{n16r} resumed; {rbatches} batches, {rleft} left")
+        check(np.isfinite(tex_rs).all() and tex_rs.sum() > 0,
+              "rotated mini render not finite and positive")
+        r40["rotated_mini"] = dict(
+            route="trace_deposits_narrow (row 11) + fused_splat (row 16)",
+            batches=rbatches, segments=rsegs, cursor_at_kill=rcursor,
+            batches_resumed=rleft, straight_wall_s=w_rs,
+            checkpointed_wall_s=w_rck, killed_process_wall_s=w_rkilled,
+            resumed_wall_s=w_rres, texels_equal=int(tex_rs.shape[0]))
+        seconds["40"] = time.perf_counter() - t40
+        say("checkpoint_resume", **r40, seconds=seconds["40"])
+
+        # 41. progressive previews of mini ---------------------------------
+        t41 = time.perf_counter()
+        segs_m = segments_of(counts_m, B, every)
+        n_m = len(scene_m.walls)
+        w_plain, _, out_p = cli_render([str(mini), "30"], tmp / "41p", n_m)
+        writes = []
+        real_save = tiles_io.save_tiles
+
+        def counting_save(*a, **k):
+            writes.append(time.perf_counter())
+            return real_save(*a, **k)
+
+        tiles_io.save_tiles = counting_save
+        try:
+            w_prev, got, out_v = cli_render([str(mini), "30", "--preview"],
+                                            tmp / "41v", n_m)
+        finally:
+            tiles_io.save_tiles = real_save
+        check(got["trace_splat_wide_rng_i8"] == segments_of(counts_m, B, 1),
+              f"preview: {got['trace_splat_wide_rng_i8']} launches")
+        check(len(writes) == segs_m + 1,
+              f"{len(writes)} tile writes, {segs_m} segments")
+
+        def pngs(out):
+            return [p.read_bytes() for p in
+                    sorted((out / "tiles").glob("tile_*.png"))]
+
+        check(pngs(out_v) == pngs(out_p),
+              "the previewed render's final tiles differ")
+        seconds["41"] = time.perf_counter() - t41
+        say("preview", scene="mini", segments=segs_m,
+            tile_writes=len(writes), tiles=n_m,
+            straight_wall_s=w_plain, preview_wall_s=w_prev,
+            final_tiles_equal=True, seconds=seconds["41"])
+
+        # 42. package mini and the 4x4 tiling, serve the 4x4 tree ---------
+        t42 = time.perf_counter()
+        r42 = {}
+        for name, png, n_walls in (("mini", mini, n_m),
+                                   ("4x4", png4, len(scene4.walls))):
+            out = tmp / "42" / name
+            wall, rc = timed(lambda: cli.main([
+                "package", str(png), "7", "30", "52.13", "11.62", "0.5",
+                "2", "--out", str(out)]))
+            check(rc == 0, f"package {name} returned {rc}")
+            get = out / "rest" / "get"
+            check((get / "layout" / "7").read_bytes() == png.read_bytes(),
+                  f"{name}: layout is not the PNG")
+            tex = json.loads((get / "textures" / "7").read_text())
+            check(sorted(tex, key=int) == [str(i) for i in range(n_walls)],
+                  f"{name}: {len(tex)} textures, {n_walls} walls")
+            for i, b64 in tex.items():
+                check(base64.b64decode(b64) == (
+                    out / "tiles" / f"tile_{i}.png").read_bytes(),
+                      f"{name}: texture {i} is not tile_{i}.png")
+            r42[name] = dict(walls=n_walls, wall_s=wall,
+                             offer_bytes=(get / "offer" / "7").stat().st_size,
+                             textures_bytes=(get / "textures" / "7")
+                             .stat().st_size)
+        offer = rest.OFFER_TEMPLATE
+        for key, val in (
+                ("$COLLISION_MAP",
+                 (FIXTURES / "mini_collisionMap.json").read_text()),
+                ("$LONGITUDE", "11.62"), ("$LATITUDE", "52.13"),
+                ("$LEVEL", "2"), ("$SCALE", "30.0"), ("$YAW", "0.5"),
+                ("$LAYOUT", (FIXTURES / "mini_geometry.json").read_text()),
+                ("$ROW_ID", "7")):
+            offer = offer.replace(key, val)
+        check((tmp / "42" / "mini" / "rest" / "get" / "offer" / "7")
+              .read_text() == offer,
+              "mini's offer does not splice the fixtures verbatim")
+
+        root4 = tmp / "42" / "4x4"
+        get4 = root4 / "rest" / "get"
+        srv = rest.make_rest_server(str(root4), port=0)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+
+        def fetch(path):
+            url = f"http://127.0.0.1:{srv.server_port}{path}"
+            try:
+                with urllib.request.urlopen(url, timeout=60) as r:
+                    return r.status, r.read()
+            except urllib.error.HTTPError as e:
+                return e.code, b""
+
+        routes = {
+            "/": (200, rest._VIEWER_HTML.encode()),
+            "/walk?id=7": (200, rest._WALK_HTML.encode()),
+            "/offers": (200, b"[7]"),
+            "/rest/get/offer/7": (200, (get4 / "offer" / "7").read_bytes()),
+            "/rest/get/layout/7": (200, png4.read_bytes()),
+            "/rest/get/textures/7": (
+                200, (get4 / "textures" / "7").read_bytes()),
+            "/rest/get/offer/8": (404, b""),
+            "/rest/get/offer/..%2F..%2Fgeometry.json": (404, b""),
+        }
+        try:
+            t_srv = time.perf_counter()
+            for path, (status, body) in routes.items():
+                got = fetch(path)
+                check(got[0] == status and (status != 200 or got[1] == body),
+                      f"served {path}: status {got[0]}, "
+                      f"{len(got[1])} bytes")
+            serve_s = time.perf_counter() - t_srv
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=60)
+        check(not thread.is_alive(), "the REST server did not stop")
+        seconds["42"] = time.perf_counter() - t42
+        say("package_and_serve", **r42, routes_served=len(routes),
+            serve_s=serve_s, seconds=seconds["42"])
+
+        # 43. the first-hit debug render and the profiler ------------------
+        t43 = time.perf_counter()
+        w_dbg, rc = timed(lambda: cli.main([
+            "debug", str(mini), "30", "--out", str(tmp / "dbg.png")]))
+        check(rc == 0, f"debug returned {rc}")
+        w_dbg_cpu, rc = timed(lambda: cli.main([
+            "debug", str(mini), "30", "--device", "cpu", "--out",
+            str(tmp / "dbg_cpu.png")]))
+        check(rc == 0, f"debug --device cpu returned {rc}")
+        card = np.asarray(Image.open(tmp / "dbg.png"))
+        host = np.asarray(Image.open(tmp / "dbg_cpu.png"))
+        share = float((card == host).all(-1).mean())
+        check(card.shape == (768, 1024, 4) and share >= DEBUG_SHARE,
+              f"debug: {share} of pixels equal the CPU's")
+        check(len(np.unique(card[..., :3].reshape(-1, 3), axis=0)) >= 4,
+              "debug: too few rects in view")
+        prof = tmp / "prof"
+        w_prof, got, _ = cli_render([str(mini), "30", "--profile", str(prof)],
+                                    tmp / "43p", n_m)
+        launches = got["trace_splat_wide_rng_i8"]
+        events = json.loads((prof / "flatmatch_torch.pt.trace.json")
+                            .read_text())["traceEvents"]
+        kern = [e for e in events if "trace_splat_kernel" in
+                str(e.get("name")) and e.get("ph") == "X"
+                and e.get("cat") == "kernel"]
+        check(launches > 0 and kern,
+              f"the trace names trace_splat_kernel {len(kern)} times, "
+              f"{launches} launches")
+        seconds["43"] = time.perf_counter() - t43
+        say("debug_and_profile", debug_wall_s=w_dbg,
+            debug_cpu_wall_s=w_dbg_cpu, pixels_equal_share=share,
+            profiled_render_wall_s=w_prof, straight_render_wall_s=w_plain,
+            trace_splat_kernel_events=len(kern), launches=launches,
+            trace_splat_kernel_device_ms=sum(e.get("dur", 0) for e in kern)
+            / 1e3, seconds=seconds["43"])
+    say("publishing_phases", seconds=seconds, total_s=sum(seconds.values()))
+
+
 def main():
     import torch
 
@@ -3023,7 +3385,6 @@ def main():
     import numpy as np
 
     from flatmatch_tpu_torch import cli
-    from flatmatch_tpu_torch.config import DEFAULT_CONFIG
     from flatmatch_tpu_torch.diff.fit import fit_materials
     from flatmatch_tpu_torch.diff.render import make_diff_renderer_wide
     from flatmatch_tpu_torch.engines import photon_wide as pw
@@ -3037,9 +3398,7 @@ def main():
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     mini = FIXTURES / "mini.png"
-    # the CLI's defaults: device RNG on, in-kernel 7-bit splat
-    cfg = DEFAULT_CONFIG.replace(photon=dataclasses.replace(
-        DEFAULT_CONFIG.photon, device_rng=True, splat="inkernel_i8"))
+    cfg = cli_photon_cfg()
     B = cfg.photon.photons_per_batch
     scale = np.float32(pw.splat_color_scale(cfg.photon))
 
@@ -3087,11 +3446,12 @@ def main():
 
     # 3. determinism: one emitter's full schedule, twice ----------------------
     sched = [pw.emitter_schedule(s["em"].counts, B)[0]]
+    em0 = s["em"]._replace(counts=np.where(
+        np.arange(len(s["em"].counts)) == sched[0][0], s["em"].counts, 0))
 
     def emitter_render():
         return pw.render_all_wide(s["aa_c"].fields, s["aa_c"].group_counts,
-                                  s["em"], cfg.photon, B, sched,
-                                  s["total_c"])
+                                  em0, cfg.photon, s["total_c"])
 
     a, b = emitter_render(), emitter_render()
     torch.cuda.synchronize()
@@ -3355,6 +3715,7 @@ def main():
                                   {"mini": s, "4x4": s6, "13x13": s13})
     redesigned_nearest_phase(nearest, walls17)
     fold_past_the_cap_phase(dev, cfg, make_layout)
+    publishing_phases(dev, make_layout)
 
     print(json.dumps({"kernels": [dict(KERNELS[k], **results[k])
                                   for k in KERNELS]}))

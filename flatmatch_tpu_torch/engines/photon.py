@@ -172,8 +172,10 @@ def render_photons(rects: Rects, emitters: Emitters, num_texels: int,
                    cfg: PhotonConfig, checkpoint_path: str = None,
                    on_segment=None) -> torch.Tensor:
     """Full photon pass on the rect table's device: every window, then
-    every light. Returns the raw (un-normalized) [num_texels, 3] lightmap."""
-    from .schedule import emitter_slice, run_schedule
+    every light. Returns the raw (un-normalized) [num_texels, 3] lightmap.
+    With `checkpoint_path`, periodic host checkpoints make an interrupted
+    render resume bit-identically (engines/schedule.py)."""
+    from .schedule import emitter_slice, run_schedule, threefry_step
 
     slices = {}
 
@@ -182,6 +184,7 @@ def render_photons(rects: Rects, emitters: Emitters, num_texels: int,
             slices[e] = emitter_slice(emitters, e)
         trace_batch(lm, rects, slices[e], uniforms, n_valid, cfg)
 
-    return run_schedule(trace, emitters, num_texels, cfg,
-                        checkpoint_path=checkpoint_path,
-                        on_segment=on_segment)
+    return run_schedule(
+        threefry_step(trace, cfg, rects.pos.device), emitters, num_texels,
+        cfg, checkpoint_path=checkpoint_path, fingerprint_extra=("xla",),
+        on_segment=on_segment)

@@ -229,8 +229,9 @@ def render_photons(rects: Rects, emitters: Emitters, num_texels: int,
                    on_segment=None) -> torch.Tensor:
     """Full photon pass through the narrow kernel on the rect table's
     device: the raw (un-normalized) [num_texels, 3] lightmap
-    (photon_pallas.render_photons)."""
-    from .schedule import run_schedule
+    (photon_pallas.render_photons), checkpointed and previewed as
+    engines/schedule.py says."""
+    from .schedule import run_schedule, threefry_step
 
     scene = narrow_table(rects)
     evs = {}
@@ -240,6 +241,7 @@ def render_photons(rects: Rects, emitters: Emitters, num_texels: int,
             evs[e] = pw.emitter_vector(emitters, e)
         trace_batch_narrow(lm, scene, evs[e], u_t, n_valid, cfg)
 
-    return run_schedule(trace, emitters, num_texels, cfg, transposed=True,
-                        checkpoint_path=checkpoint_path,
-                        on_segment=on_segment)
+    return run_schedule(
+        threefry_step(trace, cfg, scene.device, transposed=True), emitters,
+        num_texels, cfg, checkpoint_path=checkpoint_path,
+        fingerprint_extra=("pallas_narrow",), on_segment=on_segment)

@@ -79,9 +79,10 @@ def unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to flatmatch_tpu_torch yet; the port runs "
         f"the photon render (both general engines on any scene, every "
-        f"splat on axis-aligned ones), the ambient-occlusion engine, and "
-        f"the fit and the radiosity engine on axis-aligned scenes (see "
-        f"ROADMAP.md)"
+        f"splat on axis-aligned ones), the ambient-occlusion engine, "
+        f"the fit and the radiosity engine on axis-aligned scenes, and "
+        f"package, serve, debug, --checkpoint, --preview and --profile "
+        f"(see ROADMAP.md)"
     )
 
 
@@ -1139,22 +1140,27 @@ def schedule_batches(schedule, batch_size: int, tail_shrink: bool = True,
 
 
 def render_all_wide(fields, group_counts, emitters: Emitters,
-                    cfg: PhotonConfig, batch_size: int, schedule,
-                    num_texels: int) -> torch.Tensor:
+                    cfg: PhotonConfig, num_texels: int,
+                    checkpoint_path=None, on_segment=None) -> torch.Tensor:
     """The whole emitter schedule, one batch after another into the f32
-    lightmap (photon_pallas_wide._render_all_wide). The draws are the
-    counter hash with the device RNG, else the batch's threefry uniforms.
-    The in-kernel tiers: one launch per batch, its int32 accumulator
-    de-scaled (`inkernel_i8`) or its f32 increment added (`inkernel`). The
-    stream tiers: the stream trace, then `splat_stream`. Each emitter's
-    tail batch runs at `tail_batch_size` (on the stream tiers in whole
-    stream blocks, so its stream is the first rows of the full batch's).
-    Draws, dither keys and f32 sums depend only on the photon index, and a
-    shrunk threefry batch draws the first rows of the full one, so the
-    shrink changes no bit; the JAX package keeps the full grid on threefry
-    (photon_pallas_wide.py:1713-1719), with the same result."""
+    lightmap, through `schedule.run_schedule` (photon_pallas_wide.
+    _render_all_wide, and _trace_emitter_wide under a checkpoint or a
+    preview). The draws are the counter hash with the device RNG, else the
+    batch's threefry uniforms. The in-kernel tiers: one launch per batch,
+    its int32 accumulator de-scaled (`inkernel_i8`) or its f32 increment
+    added (`inkernel`). The stream tiers: the stream trace, then
+    `splat_stream`. Each emitter's tail batch runs at `tail_batch_size` (on
+    the stream tiers in whole stream blocks, so its stream is the first
+    rows of the full batch's). Draws, dither keys and f32 sums depend only
+    on the photon index, and a shrunk threefry batch draws the first rows
+    of the full one, so the shrink changes no bit; the JAX package keeps
+    the full grid on threefry (photon_pallas_wide.py:1713-1719), with the
+    same result. The accumulator and the stream splat's scratch are zeroed
+    by every launch, so nothing but the lightmap carries across a segment
+    and a resumed run equals the straight one."""
+    from .schedule import run_schedule
+
     dev = fields.device
-    lm = torch.zeros((num_texels, 3), dtype=torch.float32, device=dev)
     evs = {}
 
     def ev(e):
@@ -1167,7 +1173,9 @@ def render_all_wide(fields, group_counts, emitters: Emitters,
         i8 = cfg.splat == "inkernel_i8"
         acc = torch.empty((num_texels, 3), dtype=torch.int32, device=dev)
         scale = float(np.float32(splat_color_scale(cfg)))
-        for e, gb, nv, bsz in schedule_batches(schedule, batch_size):
+        quantum = THREADS
+
+        def step(lm, e, gb, nv, bsz):
             if cfg.device_rng:
                 kernel = (trace_splat_wide_rng_i8 if i8
                           else trace_splat_wide_rng_f32)
@@ -1183,21 +1191,23 @@ def render_all_wide(fields, group_counts, emitters: Emitters,
             else:
                 lm += kernel(fields, group_counts, ev(e), *draws, cfg,
                              num_texels)
-        return lm
-    block = stream_block(batch_size)
-    for e, gb, nv, bsz in schedule_batches(schedule, batch_size,
-                                           quantum=block):
-        if cfg.device_rng:
-            idx, col = trace_deposits_wide_rng(
-                fields, group_counts, ev(e), rng.batch_seed(cfg.seed, gb),
-                nv, bsz, cfg, block)
-        else:
-            u = threefry.batch_uniforms(cfg.seed, gb, bsz, U, dev,
-                                        transposed=True)
-            idx, col = trace_deposits_wide(fields, group_counts, ev(e), u,
-                                           nv, cfg, block)
-        splat_stream(lm, idx, col, cfg)
-    return lm
+    else:
+        quantum = block = stream_block(cfg.photons_per_batch)
+
+        def step(lm, e, gb, nv, bsz):
+            if cfg.device_rng:
+                idx, col = trace_deposits_wide_rng(
+                    fields, group_counts, ev(e),
+                    rng.batch_seed(cfg.seed, gb), nv, bsz, cfg, block)
+            else:
+                u = threefry.batch_uniforms(cfg.seed, gb, bsz, U, dev,
+                                            transposed=True)
+                idx, col = trace_deposits_wide(fields, group_counts, ev(e),
+                                               u, nv, cfg, block)
+            splat_stream(lm, idx, col, cfg)
+
+    return run_schedule(step, emitters, num_texels, cfg, quantum,
+                        checkpoint_path, ("wide", "compact"), on_segment)
 
 
 def check_port_cfg(cfg: PhotonConfig):
@@ -1216,15 +1226,24 @@ def check_port_cfg(cfg: PhotonConfig):
 
 
 def render_photons(emitters: Emitters, num_texels: int, cfg: PhotonConfig,
-                   aa: AARects) -> torch.Tensor:
+                   aa: AARects, checkpoint_path=None,
+                   on_segment=None) -> torch.Tensor:
     """Full photon pass: the raw (un-normalized) [num_texels, 3] lightmap
-    on the scene table's device (photon_pallas_wide.render_photons)."""
+    on the scene table's device (photon_pallas_wide.render_photons). With
+    `checkpoint_path` the compact arena is checkpointed every
+    cfg.checkpoint_every batches and an interrupted run resumes to the same
+    bits; `on_segment(lightmap, photons_done, photons_total)` sees the arena
+    lightmap after every segment (engines/schedule.py)."""
     check_port_cfg(cfg)
     B = int(cfg.photons_per_batch)
     if cfg.splat in ("inkernel_i8", "fused_i8"):
         check_i8_accumulator(cfg, B)
     aa_c, total_c, expand = compact_aa(aa, num_texels)
-    schedule = emitter_schedule(emitters.counts, B)
+    seg_cb = None
+    if on_segment is not None:
+        def seg_cb(lm, done, total):
+            on_segment(expand(lm), done, total)
+
     compact_lm = render_all_wide(aa_c.fields, aa_c.group_counts, emitters,
-                                 cfg, B, schedule, total_c)
+                                 cfg, total_c, checkpoint_path, seg_cb)
     return expand(compact_lm)

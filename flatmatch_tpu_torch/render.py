@@ -4,8 +4,11 @@ compile -> geometry JSON -> illumination engine -> per-wall lightmap tiles
 
 Counterpart of flatmatch_tpu/render.py for four engines: the photon render
 (photon_pallas and photon_xla, then exposure normalization), ambient
-occlusion and radiosity (`run_engine` says which route runs where).
-Every function that touches tensors takes an explicit `device`.
+occlusion and radiosity (`run_engine` says which route runs where), with
+the photon engines' checkpoint and resume and progressive previews. Every
+function that touches tensors takes an explicit `device`. The port runs
+in one process, so it writes every artifact itself (the JAX package's
+multi-host gating has no counterpart yet).
 """
 from __future__ import annotations
 
@@ -97,7 +100,8 @@ def downsample_supersampled(
 
 
 def run_engine(scene: geometry.Scene, cfg: RenderConfig,
-               device="cuda") -> np.ndarray:
+               device="cuda", checkpoint_path: Optional[str] = None,
+               on_segment=None) -> np.ndarray:
     """Run `cfg.engine` on `device` and return the [num_texels, 3] arena
     (main.c:60-79), dispatching as flatmatch_tpu/render.py:146-261 does on
     a TPU:
@@ -116,12 +120,21 @@ def run_engine(scene: geometry.Scene, cfg: RenderConfig,
     The general engines draw threefry and splat exactly whatever cfg.splat
     and cfg.device_rng say, as in the JAX package. The photon engines'
     arenas get the exposure normalization. No engine falls back to another
-    device: only a kernel's plain version runs, for CPU tensors."""
+    device: only a kernel's plain version runs, for CPU tensors.
+
+    Photon engines only: `checkpoint_path` checkpoints the render and
+    resumes it bit-identically, and `on_segment(raw_lightmap,
+    photons_done, photons_total)` fires after every dispatch segment with
+    the un-normalized lightmap (engines/schedule.py). The other engines
+    warn and ignore `checkpoint_path`."""
     from .engines import photon_wide
     from .ops import aa_scene
     from .ops.device_scene import pack_rects
     from .utils.progress import warn
 
+    photon_engine = cfg.engine in (Engine.PHOTON_PALLAS, Engine.PHOTON_XLA)
+    if checkpoint_path is not None and not photon_engine:
+        warn("--checkpoint applies to the photon engines only; ignored")
     if cfg.engine is Engine.AMBIENT_OCCLUSION:
         from .engines import ao
 
@@ -138,7 +151,7 @@ def run_engine(scene: geometry.Scene, cfg: RenderConfig,
         from .engines import radiosity
 
         return radiosity.render_radiosity(scene, cfg.radiosity, device)
-    if cfg.engine not in (Engine.PHOTON_PALLAS, Engine.PHOTON_XLA):
+    if not photon_engine:
         raise unsupported(f"engine {cfg.engine.value!r}")
     emitters = pack_emitters(
         scene, cfg.photon.samples_per_area, cfg.photon.window_color,
@@ -152,7 +165,8 @@ def run_engine(scene: geometry.Scene, cfg: RenderConfig,
     aa = aa_scene.pack_aa(scene.walls, device=device) if use_pallas else None
     if use_pallas and aa is not None:
         lightmap = photon_wide.render_photons(
-            emitters, scene.num_texels, cfg.photon, aa)
+            emitters, scene.num_texels, cfg.photon, aa,
+            checkpoint_path=checkpoint_path, on_segment=on_segment)
     else:
         rects = pack_rects(scene.walls, device=device)
         if use_pallas:
@@ -161,12 +175,14 @@ def run_engine(scene: geometry.Scene, cfg: RenderConfig,
             warn("scene has non-axis-aligned rects; wide AA engine "
                  "unavailable")
             lightmap = photon_narrow.render_photons(
-                rects, emitters, scene.num_texels, cfg.photon)
+                rects, emitters, scene.num_texels, cfg.photon,
+                checkpoint_path=checkpoint_path, on_segment=on_segment)
         else:
             from .engines import photon
 
             lightmap = photon.render_photons(
-                rects, emitters, scene.num_texels, cfg.photon)
+                rects, emitters, scene.num_texels, cfg.photon,
+                checkpoint_path=checkpoint_path, on_segment=on_segment)
     scale = exposure_scale(
         scene, cfg.photon.samples_per_area, cfg.photon.exposure
     )
@@ -179,6 +195,8 @@ def render(
     scale: float = 30.0,
     cfg: Optional[RenderConfig] = None,
     device="cuda",
+    checkpoint_path: Optional[str] = None,
+    preview: bool = False,
     dump_raw: bool = False,
     dilate_seams: bool = False,
     supersample: int = 1,
@@ -187,7 +205,15 @@ def render(
 
     `dump_raw=True` also writes tiles/tile_<i>.raw float32 dumps with
     TileMetadata headers (rectangle.c:391-429). `supersample=N` renders at
-    N^2 x the texel density and box-averages down before tone mapping."""
+    N^2 x the texel density and box-averages down before tone mapping.
+    `checkpoint_path` (photon engines) checkpoints the render and resumes
+    an interrupted one bit-identically. `preview=True` (photon engines)
+    re-writes the tiles after every dispatch segment, exposure-scaled by
+    the traced-so-far fraction so that their brightness is final from the
+    first preview (the browser port's incremental lightmaps,
+    worker.js:43-60); it is ignored with a warning under `supersample`."""
+    from .utils.progress import warn
+
     cfg = cfg or DEFAULT_CONFIG
     out = pathlib.Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -204,15 +230,39 @@ def render(
         f"{len(lay.windows)} windows, {len(lay.lights)} lights"
     )
 
-    ss = int(supersample)
-    if ss > 1:
-        scene_ss = supersampled_scene(scene, ss, cfg)
-        texels_ss = run_engine(scene_ss, cfg, device)
-        texels = downsample_supersampled(scene, scene_ss, texels_ss, ss)
-    else:
-        texels = run_engine(scene, cfg, device)
     # tintExtra for AO and radiosity, not the photon path (main.c:88-91)
     tint_extra = cfg.engine in (Engine.AMBIENT_OCCLUSION, Engine.RADIOSITY)
+    on_segment = None
+    photon_engine = cfg.engine in (Engine.PHOTON_XLA, Engine.PHOTON_PALLAS)
+    ss = int(supersample)
+    if ss > 1 and preview:
+        warn("--preview is unsupported with --supersample; ignored")
+        preview = False
+    if preview and photon_engine:
+        full_scale = exposure_scale(
+            scene, cfg.photon.samples_per_area, cfg.photon.exposure
+        )
+
+        def on_segment(raw_lm, done, total):
+            # scale the partial lightmap as if `done` were the whole
+            # budget: the brightness is right at once, the noise converges
+            part = raw_lm.cpu().numpy() * (
+                full_scale[:, None] * (total / max(done, 1))
+            )
+            tiles_io.save_tiles(
+                scene.walls, part, str(out / "tiles"), tint_extra,
+                dilate_seams,
+            )
+            print(f"[INF] preview tiles at {done}/{total} photons")
+    elif preview:
+        warn("--preview applies to the photon engines only; ignored")
+
+    if ss > 1:
+        scene_ss = supersampled_scene(scene, ss, cfg)
+        texels_ss = run_engine(scene_ss, cfg, device, checkpoint_path)
+        texels = downsample_supersampled(scene, scene_ss, texels_ss, ss)
+    else:
+        texels = run_engine(scene, cfg, device, checkpoint_path, on_segment)
     tile_paths = tiles_io.save_tiles(
         scene.walls, texels, str(out / "tiles"), tint_extra, dilate_seams
     )

@@ -418,21 +418,42 @@ def test_fit_cli_writes_report(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--splat", "bucket", "--profile", "prof"],
     ["--no-device-rng", "--coordinator", "localhost:1234"],
     ["--engine", "photon_xla"],
     ["--checkpoint", "ck.npz"],
 ])
 def test_fit_cli_refuses_what_the_port_does_not_run(flags, tmp_path, capsys):
     """`fit --splat bucket` and `fit --no-device-rng` run
-    (tests/test_torch_diff_threefry.py); the profiler, multi-host flags,
-    the general engines and checkpoints stay refused."""
+    (tests/test_torch_diff_threefry.py), and so does `fit --profile`
+    (test_fit_cli_runs_what_the_port_runs); multi-host flags, the general
+    engines and checkpoints, which the JAX package's fit ignores, stay
+    refused."""
     with pytest.raises(SystemExit) as e:
         cli.main(["fit", TINY, str(tmp_path), "--device", "cpu",
                   "--out", str(tmp_path / "o"), *flags])
     assert e.value.code == 2
     assert "ROADMAP.md" in capsys.readouterr().err
     assert not (tmp_path / "o").exists()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--splat", "bucket", "--profile", "prof"],
+])
+def test_fit_cli_runs_what_the_port_runs(flags, tmp_path):
+    """`fit --profile DIR`, once refused, runs and writes its report and a
+    profiler trace of the fit's torch operations."""
+    tiles = _render_target(tmp_path)
+    prof = tmp_path / "prof"
+    flags = [str(prof) if f == "prof" else f for f in flags]
+    out = tmp_path / "fit"
+    assert cli.main(["fit", TINY, str(tiles), "30", "--device", "cpu",
+                     "--samples-per-area", str(SPA), "--photons-per-batch",
+                     str(B), "--fit-steps", "1", "--out", str(out),
+                     *flags]) == 0
+    assert json.loads((out / "fitted.json").read_text())["steps"] == 1
+    trace = json.loads((prof / "flatmatch_torch.pt.trace.json").read_text())
+    assert any(str(e.get("name")).startswith("aten::")
+               for e in trace["traceEvents"])
 
 
 @pytest.mark.parametrize("change", [dict(splat="scatter"),

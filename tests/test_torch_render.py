@@ -12,6 +12,7 @@ not run (tests/test_torch_stream.py checks the stream tiers it runs,
 tests/test_torch_inkernel.py the other in-kernel routes).
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -106,14 +107,8 @@ def test_supersample_render(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--engine", "photon_xla", "--checkpoint", "ck.npz"],
     ["--engine", "photon_oracle"],
-    ["--profile", "prof"],
     ["--process-id", "0"],
-    ["--splat", "inkernel", "--no-device-rng", "--checkpoint", "ck.npz"],
-    ["--no-device-rng", "--splat", "inkernel_i8", "--preview"],
-    ["--checkpoint", "ck.npz"],
-    ["--preview"],
     ["--coordinator", "localhost:1234"],
     ["--num-processes", "2"],
 ])
@@ -124,6 +119,83 @@ def test_cli_refuses_what_the_slice_does_not_run(flags, tmp_path, capsys):
     assert e.value.code == 2
     assert "ROADMAP.md" in capsys.readouterr().err
     assert not (tmp_path / "geometry.json").exists()
+
+
+def _tile_bytes(out):
+    return [p.read_bytes()
+            for p in sorted((out / "tiles").glob("tile_*.png"))]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--engine", "photon_xla", "--checkpoint", "ck.npz"],
+    ["--profile", "prof"],
+    ["--splat", "inkernel", "--no-device-rng", "--checkpoint", "ck.npz"],
+    ["--no-device-rng", "--splat", "inkernel_i8", "--preview"],
+    ["--checkpoint", "ck.npz"],
+    ["--preview"],
+])
+def test_cli_runs_what_the_slice_runs(flags, tmp_path, capsys):
+    """The flags the port once refused run on tiny (869 photons in four
+    batches of 256, one a segment), and each writes what it promises: the
+    tiles of the same render without it; a checkpoint whose cursor is past
+    the last emitter, from which a rerun writes the same tiles; a profiler
+    trace of the torch operations; and a preview after each segment, the
+    last of which covers every photon."""
+    ck, prof = tmp_path / "ck.npz", tmp_path / "prof"
+    flags = [{"ck.npz": str(ck), "prof": str(prof)}.get(f, f) for f in flags]
+    base = ["render", TINY, "30", "--device", "cpu", "--samples-per-area",
+            str(SPA), "--photons-per-batch", "256", "--checkpoint-every",
+            "1"]
+    plain, it = [], iter(flags)
+    for f in it:
+        if f in ("--checkpoint", "--profile"):
+            next(it)
+        elif f != "--preview":
+            plain.append(f)
+    assert cli.main([*base, "--out", str(tmp_path / "plain"), *plain]) == 0
+    want = _tile_bytes(tmp_path / "plain")
+    assert len(want) == 13
+    capsys.readouterr()
+    assert cli.main([*base, "--out", str(tmp_path / "out"), *flags]) == 0
+    assert _tile_bytes(tmp_path / "out") == want
+    previews = [ln for ln in capsys.readouterr().out.splitlines()
+                if "preview tiles at" in ln]
+    if "--preview" in flags:
+        assert len(previews) == 4 and previews[-1].endswith("869/869 photons")
+    else:
+        assert not previews
+    assert ck.exists() == ("--checkpoint" in flags)
+    if ck.exists():
+        with np.load(ck) as z:
+            assert (int(z["emitter_index"]), int(z["batch_index"])) == (1, 0)
+            assert np.isfinite(z["lightmap"]).all() and z["lightmap"].sum() > 0
+        assert cli.main([*base, "--out", str(tmp_path / "again"),
+                         *flags]) == 0
+        assert _tile_bytes(tmp_path / "again") == want
+    assert prof.exists() == ("--profile" in flags)
+    if prof.exists():
+        trace = json.loads((prof / "flatmatch_torch.pt.trace.json")
+                           .read_text())
+        assert any(str(e.get("name")).startswith("aten::")
+                   for e in trace["traceEvents"])
+
+
+@pytest.mark.parametrize("kw,warning", [
+    (dict(supersample=2), "--preview is unsupported with --supersample"),
+    (dict(engine=Engine.AMBIENT_OCCLUSION),
+     "--preview applies to the photon engines only"),
+], ids=["supersample", "ambient_occlusion"])
+def test_preview_is_ignored_where_it_cannot_run(kw, warning, tmp_path,
+                                                capsys):
+    """As in the JAX package: `preview` warns and writes no preview under
+    `supersample` and for an engine that has no segments."""
+    cfg = _cfg(DEFAULT_CONFIG).replace(
+        engine=kw.get("engine", Engine.PHOTON_PALLAS))
+    res = render(TINY, str(tmp_path), 30.0, cfg, device="cpu", preview=True,
+                 supersample=kw.get("supersample", 1))
+    assert len(res.tile_paths) == 13
+    out = capsys.readouterr()
+    assert warning in out.err and "preview tiles at" not in out.out
 
 
 @pytest.mark.parametrize("change", [

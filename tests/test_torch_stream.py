@@ -382,9 +382,8 @@ def _raw(cfg, name=TINY):
     em = pack_emitters(scene, ph.samples_per_area, ph.window_color,
                        ph.light_color, "cpu")
     aa_c, total_c, _ = pw.compact_aa(aa, scene.num_texels)
-    sched = pw.emitter_schedule(em.counts, ph.photons_per_batch)
     return pw.render_all_wide(aa_c.fields, aa_c.group_counts, em, ph,
-                              ph.photons_per_batch, sched, total_c)
+                              total_c)
 
 
 def test_fused_i8_matches_fused_statistically():
@@ -490,9 +489,6 @@ def test_diff_renderer_refuses_the_stream_tiers(photon):
 
 
 @pytest.mark.parametrize("argv", [
-    ["render", TINY, "--splat", "inkernel", "--checkpoint", "ck.npz"],
-    ["fit", TINY, "tiles", "--splat", "inkernel", "--no-device-rng",
-     "--profile", "prof"],
     ["fit", TINY, "tiles", "--splat", "scatter", "--coordinator",
      "localhost:1234"],
 ])
@@ -502,6 +498,37 @@ def test_cli_refuses_what_stays_unported(argv, tmp_path, capsys):
     assert e.value.code == 2
     assert "ROADMAP.md" in capsys.readouterr().err
     assert not (tmp_path / "o").exists()
+
+
+@pytest.mark.parametrize("argv", [
+    ["render", TINY, "--splat", "inkernel", "--checkpoint", "ck.npz"],
+    ["fit", TINY, "tiles", "--splat", "inkernel", "--no-device-rng",
+     "--profile", "prof"],
+])
+def test_cli_runs_what_was_unported(argv, tmp_path):
+    """`render --checkpoint` and `fit --profile`, once refused, run on tiny
+    and write their checkpoint (its cursor past the last emitter) or their
+    profiler trace beside the tiles or the fit's report."""
+    budget = ["--device", "cpu", "--samples-per-area", "3000",
+              "--photons-per-batch", "1024"]
+    target = tmp_path / "target"
+    if argv[0] == "fit":
+        assert cli.main(["render", TINY, *budget, "--dump-raw", "--out",
+                         str(target)]) == 0
+        budget += ["--fit-steps", "1"]
+    names = {"ck.npz": str(tmp_path / "ck.npz"),
+             "prof": str(tmp_path / "prof"), "tiles": str(target / "tiles")}
+    out = tmp_path / "o"
+    assert cli.main([*(names.get(a, a) for a in argv), *budget, "--out",
+                     str(out)]) == 0
+    if argv[0] == "fit":
+        assert (out / "fitted.json").is_file()
+        assert (tmp_path / "prof" / "flatmatch_torch.pt.trace.json").stat(
+            ).st_size > 0
+    else:
+        assert len(list((out / "tiles").glob("tile_*.png"))) == 13
+        with np.load(tmp_path / "ck.npz") as z:
+            assert (int(z["emitter_index"]), int(z["batch_index"])) == (1, 0)
 
 
 @pytest.mark.parametrize("flags", [
