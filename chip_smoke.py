@@ -171,9 +171,14 @@ KERNEL_SITES = {
     "trace_deposits_narrow": ("engines.photon_narrow",
                               "trace_deposits_narrow",
                               "flatmatch_tpu/engines/photon_pallas.py:299"),
+    # the general intersector runs in XLA, not Pallas: the line is its
+    # intersect_all, which nearest_hit (:74) reduces
+    "general_nearest": ("ops.intersect", "general_nearest",
+                        "flatmatch_tpu/ops/intersect.py:45"),
 }
 # the wrapper of a kernel is the function of its name, except
-WRAPPER_NAMES = {"threefry_uniform": "uniform"}
+WRAPPER_NAMES = {"threefry_uniform": "uniform",
+                 "general_nearest": "nearest_hit"}
 # rows 6, 7 and 9: the fit's uniforms-in kernels (phases 26-30)
 DIFF_UNIFORM_KERNELS = ("trace_deposits_wide_diff", "trace_splat_wide_diff_i8",
                         "trace_splat_wide_diff_f32", "trace_fold_wide")
@@ -258,6 +263,15 @@ LANE_INSTR_PER_S = INT32_OPS_PER_S
 # FADD), the hit test, the select of sky, the product and the sum. The
 # table's loads, the loop control and the stores are left out.
 AA_RECT_TEST_INSTRUCTIONS = 19
+# The rect test of the general nearest-hit kernel (csrc/general_nearest.cu,
+# the loop of the shared-memory instance), counted in its SASS
+# (tools/sass_loops.py, PERF.md): the six dot products of src and dir with
+# n, w_unit and h_unit (18 FMUL, 12 FADD), n_off - src.n, the IEEE
+# division's fast path (MUFU.RCP, 5 FFMA, FCHK: 7), the two projections
+# (2 FMUL, 4 FADD), 7 compares and the 2 selects that keep the minimum and
+# its column, at LANE_INSTR_PER_S. The table's loads and the loop control
+# are left out.
+GENERAL_NEAREST_RECT_TEST_INSTRUCTIONS = 53
 AA_RAY_INSTRUCTIONS = {"aa_nearest": 15 + 22, "nearest_distances": 15 + 2,
                        "ao_fused": 15 + 11}
 # The debug render of mini at the CLI's camera on the card against the
@@ -842,7 +856,9 @@ def profiled(fn):
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         name = e.key
-        if "nearest_kernel" in name:
+        if "general_nearest_kernel" in name:
+            group = "general_nearest.cu"
+        elif "nearest_kernel" in name:
             group = "aa_nearest.cu"
         elif "ao_fused_kernel" in name:
             group = "ao_fused.cu"
@@ -2286,7 +2302,8 @@ def general_phases(dev, results, make_layout):
     with tempfile.TemporaryDirectory() as tmp:
         wall_x, launches_x, _ = cli_render(
             [str(mini), "30", "--engine", "photon_xla"], tmp, 27)
-    want_x = {"threefry_uniform": n_batches, "fused_splat": n_batches}
+    want_x = {"threefry_uniform": n_batches, "fused_splat": n_batches,
+              "general_nearest": n_batches * D}
     check({k: v for k, v in launches_x.items() if v} == want_x,
           f"photon_xla launches {launches_x}, want {want_x}")
     say("general_cli", photons=photons, batches=n_batches,
@@ -3008,8 +3025,8 @@ def fold_past_the_cap_phase(dev, cfg, make_layout):
     reset_launches()
     sync()
     t0 = time.perf_counter()
-    fit = fit_materials(target, em, scene16.num_texels, cfg16.photon, aa=aa,
-                        steps=1, init_albedo=0.6, init_power=0.5)
+    fit = fit_materials(target, None, em, scene16.num_texels, cfg16.photon,
+                        aa=aa, steps=1, init_albedo=0.6, init_power=0.5)
     sync()
     fit_s = time.perf_counter() - t0
     launches = {kk: v for kk, v in read_launches().items() if v}
@@ -3376,6 +3393,348 @@ def publishing_phases(dev, make_layout):
     say("publishing_phases", seconds=seconds, total_s=sum(seconds.values()))
 
 
+# --------------------------------------------------------------------------
+# the general intersector on the card: its kernel, the general radiosity,
+# the general differentiable renderer, the NumPy oracle (phases 44-47)
+# --------------------------------------------------------------------------
+def general_nearest_bound(n_rects, rays):
+    """Bound of one general nearest-hit launch: every ray tests all
+    n_rects rects (GENERAL_NEAREST_RECT_TEST_INSTRUCTIONS each, at
+    LANE_INSTR_PER_S); bytes: the record table (64 a rect), the rays (24
+    bytes each) read, dist and hit (8) written."""
+    ops = rays * n_rects * GENERAL_NEAREST_RECT_TEST_INSTRUCTIONS
+    return bound(64 * n_rects + 32 * rays, ops, LANE_INSTR_PER_S)
+
+
+def second_bounce_rays(g, cfg):
+    """The rays of the second bounce of batch 0 of emitter 0 of `g`
+    (general_setup), as engines/photon.trace_deposits casts them."""
+    import torch
+
+    from flatmatch_tpu_torch.engines import photon
+    from flatmatch_tpu_torch.engines.schedule import emitter_slice
+    from flatmatch_tpu_torch.ops import intersect, threefry
+
+    ph = cfg.photon
+    u = threefry.batch_uniforms(ph.seed, 0, ph.photons_per_batch,
+                                4 + 3 * ph.max_depth, g["rects"].n.device)
+    rays = []
+
+    def record(src, d, rects):
+        rays.append((src.clone(), d.clone()))
+        return intersect.nearest_hit(src, d, rects)
+
+    photon.nearest_hit = record
+    try:
+        photon.trace_deposits(g["rects"], emitter_slice(g["em"], 0), u,
+                              ph.photons_per_batch, ph)
+    finally:
+        photon.nearest_hit = intersect.nearest_hit
+    check(len(rays) == ph.max_depth, "trace_deposits cast no rays")
+    return tuple(torch.Tensor.contiguous(x) for x in rays[1])
+
+
+def form_factor_rays(scene, dev, rays=10000, texels=None):
+    """The general table of `scene`'s extended rects and the form-factor
+    rays of wall 0's first chunk at `rays` rays a texel (its first
+    `texels` texels when given), as engines/radiosity casts them."""
+    import numpy as np
+    import torch
+
+    from flatmatch_tpu_torch.config import DEFAULT_CONFIG
+    from flatmatch_tpu_torch.engines import radiosity
+    from flatmatch_tpu_torch.ops import threefry
+    from flatmatch_tpu_torch.ops.device_scene import pack_rects
+
+    rad = DEFAULT_CONFIG.radiosity
+    table = pack_rects(radiosity.extended_rects(scene)[0], device=dev)
+    wall = scene.walls[0]
+    c = radiosity.tile_centers(wall)[:texels or rad.texels_per_chunk]
+    key = threefry.fold_in(threefry.fold_in(threefry.prng_key(rad.seed), 0),
+                           0)
+    src, d = radiosity.ff_rays(
+        torch.from_numpy(c).to(dev),
+        torch.from_numpy(np.asarray(wall.n, np.float32)).to(dev), key, rays)
+    return table, src, d
+
+
+def general_nearest_vs_plain(rects, src, d, reps=10, plain_reps=1,
+                             cut=None):
+    """The general nearest-hit kernel on rays (src, d) against
+    nearest_hit_plain on the same card: every distance's bits and hit id
+    equal (on the first `cut` rays when given), a rerun bit for bit; its
+    device ms and host µs a launch (device_ms), the plain version's ms, the
+    bound and its share, and the plan the library reports."""
+    import torch
+
+    from flatmatch_tpu_torch.ops import intersect
+
+    dist, hit = intersect.nearest_hit(src, d, rects)
+    dist2, hit2 = intersect.nearest_hit(src, d, rects)
+    sync()
+    check(torch.equal(dist.view(torch.int32), dist2.view(torch.int32))
+          and torch.equal(hit, hit2), "general_nearest: two runs differ")
+    cs, cd = src[:cut], d[:cut]
+    pd, ph = intersect.nearest_hit_plain(cs, cd, rects)
+    sync()
+    n_cmp = pd.shape[0]
+    same_d = torch.equal(dist[:n_cmp].view(torch.int32), pd.view(torch.int32))
+    same_h = torch.equal(hit[:n_cmp], ph)
+    check(same_d and same_h, f"general_nearest differs from its plain "
+          f"version: distances equal {same_d}, hits equal {same_h}")
+    n = intersect.general_table(rects).shape[0]
+    R = src.shape[0]
+    ms, host_us = device_ms(lambda: intersect.nearest_hit(src, d, rects),
+                            reps)
+    pms = cuda_ms(lambda: intersect.nearest_hit_plain(cs, cd, rects),
+                  plain_reps)
+    bnd = general_nearest_bound(n, R)
+    return dict(rays=R, compared_rays=n_cmp, rects=n,
+                hit_share=torch.isfinite(pd).float().mean().item(),
+                bit_identical_to_plain=True, bit_identical_rerun=True,
+                ms=ms, host_us=host_us,
+                **{"plain_ms_compared" if cut else "plain_ms": pms},
+                bound_ms=bnd[0], bound_by=bnd[1], share_of_bound=bnd[0] / ms,
+                **intersect.general_plan(n, rects.n.device))
+
+
+def general_intersector_phases(dev, results, make_layout):
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from flatmatch_tpu_torch import cli
+    from flatmatch_tpu_torch.config import DEFAULT_CONFIG, Engine
+    from flatmatch_tpu_torch.diff import render as prender
+    from flatmatch_tpu_torch.diff.fit import fit_materials
+    from flatmatch_tpu_torch.engines import photon, radiosity
+    from flatmatch_tpu_torch.engines.schedule import emitter_slice
+    from flatmatch_tpu_torch.io.tiles import load_tile_raw
+    from flatmatch_tpu_torch.ops import intersect, threefry
+    from flatmatch_tpu_torch.ops.device_scene import (
+        exposure_scale, pack_emitters, pack_rects,
+    )
+    from flatmatch_tpu_torch.render import compile_scene, run_engine
+    from flatmatch_tpu_torch.scene.rectangle import num_tiles
+
+    t_all = time.perf_counter()
+    seconds = {}
+    mini = FIXTURES / "mini.png"
+    cfg = DEFAULT_CONFIG
+    ph = cfg.photon
+    scene, _ = compile_scene(str(mini), 30.0, cfg)
+    rscene = rotated_scene(scene, 30)
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = {}
+        for k in (4, 13):
+            png = pathlib.Path(tmp) / f"mini_{k}x{k}.png"
+            make_layout.tiled(str(mini), str(png), k, k)
+            scenes[k] = rotated_scene(compile_scene(str(png), 30.0, cfg)[0],
+                                      30)
+
+    # 44. the general nearest-hit kernel against its plain version ---------
+    t0 = time.perf_counter()
+    k44 = {}
+    for name, sc in (("mini", scene), ("rotated_mini", rscene),
+                     ("rotated_4x4", scenes[4])):
+        g = general_setup(sc, cfg, dev)
+        src, d = second_bounce_rays(g, cfg)
+        k44[f"{name}_photon"] = general_nearest_vs_plain(g["rects"], src, d)
+        if name != "mini":
+            table, src, d = form_factor_rays(sc, dev)
+            k44[f"{name}_form_factors"] = general_nearest_vs_plain(
+                table, src, d, reps=3,
+                cut=None if name == "rotated_mini" else 1 << 20)
+        del g, src, d
+    table, src, d = form_factor_rays(scenes[13], dev, texels=7)
+    k44["rotated_13x13_form_factors"] = general_nearest_vs_plain(
+        table, src[:65536].contiguous(), d[:65536].contiguous(), reps=3)
+    del table, src, d
+    check(k44["rotated_13x13_form_factors"]["instance"] == "device"
+          and k44["rotated_13x13_form_factors"]["rects"] > 3632,
+          "rotated 13x13's extended rects took the shared-memory instance")
+    check(all(v["instance"] == "shared" for k, v in k44.items()
+              if not k.startswith("rotated_13x13")),
+          "a table under 3,632 rects took the device-memory instance")
+    r = k44["rotated_mini_form_factors"]
+    results["general_nearest"] = dict(
+        max_abs_err=0.0, ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
+    seconds["44"] = time.perf_counter() - t0
+    say("general_nearest_vs_plain", **k44, seconds=seconds["44"])
+
+    # 45. radiosity of rotated mini at the CLI defaults ---------------------
+    t0 = time.perf_counter()
+    cfg_rad = cfg.replace(engine=Engine.RADIOSITY)
+    rad = cfg_rad.radiosity
+    chunks = sum(-(-num_tiles(w) // rad.texels_per_chunk)
+                 for w in rscene.walls)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t1 = time.perf_counter()
+    out45 = run_engine(rscene, cfg_rad, dev)
+    wall45 = time.perf_counter() - t1
+    launches45 = {k: v for k, v in read_launches().items() if v}
+    peak45 = torch.cuda.max_memory_allocated()
+    check(launches45 == {"general_nearest": chunks,
+                         "threefry_uniform": chunks},
+          f"rotated mini radiosity launches {launches45}, want {chunks} "
+          f"general_nearest and threefry_uniform")
+    results["general_nearest"]["launches"] = chunks
+    bands45 = radiosity_bands(rscene, out45, rad.rays_per_texel)
+    prof45 = profiled(lambda: run_engine(rscene, cfg_rad, dev))
+    # rotated 4x4's form-factor pass
+    _, table6, _ = radiosity.prepare(scenes[4], rad, dev)
+    chunks6 = sum(-(-num_tiles(w) // rad.texels_per_chunk)
+                  for w in scenes[4].walls)
+    reset_launches()
+    sync()
+    t1 = time.perf_counter()
+    ids6 = radiosity.form_factors(scenes[4], table6, rad)
+    sync()
+    ff6 = time.perf_counter() - t1
+    launches6 = read_launches()["general_nearest"]
+    check(launches6 == chunks6, f"rotated 4x4 form factors: {launches6} "
+          f"launches, want {chunks6}")
+    hit6 = (ids6 >= 0).float().mean().item()
+    check(hit6 > 0.95, f"rotated 4x4 form factors: {hit6} of rays hit")
+    del ids6
+    prof6 = profiled(lambda: radiosity.form_factors(scenes[4], table6, rad))
+    seconds["45"] = time.perf_counter() - t0
+    say("general_radiosity", rotated_mini=dict(
+        rays=rad.rays_per_texel, iterations=rad.iterations, wall_s=wall45,
+        form_factor_launches=chunks, launches=launches45,
+        peak_device_bytes=peak45, profile=prof45, **bands45),
+        rotated_4x4_form_factors=dict(
+            rects=int(intersect.general_table(table6).shape[0]),
+            launches=launches6,
+            rays=int(sum(num_tiles(w) for w in scenes[4].walls))
+            * rad.rays_per_texel, wall_s=ff6, hit_share=hit6,
+            profile=prof6), seconds=seconds["45"])
+    del table6
+
+    # 46. the general diff renderer on rotated mini -------------------------
+    t0 = time.perf_counter()
+    g = general_setup(rscene, cfg, dev)
+    rects, em = g["rects"], g["em"]
+    T, N, E = rscene.num_texels, rects.n.shape[0], len(em.counts)
+    r46 = prender.make_diff_renderer(rects, em, T, ph)
+    a0 = torch.full((N,), np.float32(ph.albedo), device=dev)
+    p0 = torch.ones(E, device=dev)
+    reset_launches()
+    sync()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        fwd = r46(a0, p0)
+    sync()
+    fwd_s = time.perf_counter() - t1
+    launches46 = {k: v for k, v in read_launches().items() if v}
+    n_b = sum(-(-int(n) // ph.photons_per_batch) for n in em.counts if n)
+    want46 = {"general_nearest": n_b * ph.max_depth, "threefry_uniform": n_b,
+              "fused_splat": n_b}
+    check(launches46 == want46, f"diff forward launches {launches46}, "
+          f"want {want46}")
+    check(torch.equal(fwd, photon.render_photons(rects, em, T, ph)),
+          "the general diff forward differs from render_photons")
+    # the card's share of the general engine's batches: 16 of them under
+    # the profiler (a whole render's events take the profiler minutes)
+    em0 = emitter_slice(em, 0)
+    lm16 = torch.zeros((T, 3), device=dev)
+    prof46 = profiled(lambda: [photon.trace_batch(
+        lm16, rects, em0, threefry.batch_uniforms(
+            ph.seed, gb, ph.photons_per_batch, 4 + 3 * ph.max_depth, dev),
+        ph.photons_per_batch, ph) for gb in range(16)])
+    del lm16
+    fwd_ms, bwd_ms, step_s = fwd_bwd_ms(dev, r46, N, E, ph.albedo, 1.0)
+    # gradients against the oracle at a small budget
+    small = dc.replace(ph, samples_per_area=ph.samples_per_area / 512,
+                       photons_per_batch=16384)
+    em_s = pack_emitters(rscene, small.samples_per_area, small.window_color,
+                         small.light_color, device=dev)
+    w46 = torch.from_numpy(np.random.RandomState(46).rand(T, 3).astype(
+        np.float32)).to(dev)
+    alb = torch.from_numpy(np.random.RandomState(47).uniform(
+        0.5, 0.95, N).astype(np.float32)).to(dev)
+    pw_ = torch.linspace(0.8, 1.3, E, device=dev)
+
+    def grads(fn):
+        a, p = alb.clone().requires_grad_(), pw_.clone().requires_grad_()
+        torch.sum(fn(a, p) * w46).backward()
+        return a.grad, p.grad
+
+    rs = prender.make_diff_renderer(rects, em_s, T, small)
+    ga, gp = grads(rs)
+    oa, op = grads(prender.make_autodiff_oracle(rects, em_s, T, small))
+    ga2, gp2 = grads(rs)
+    sync()
+    check(torch.equal(ga, ga2) and torch.equal(gp, gp2),
+          "two replayed backward passes differ")
+    check(bool(((ga - oa).abs() <= 1e-4 * oa.abs() + 1e-2).all()),
+          f"albedo gradient off the oracle by {(ga - oa).abs().max()}")
+    check(bool(((gp - op).abs() <= 1e-4 * op.abs()).all()),
+          f"power gradient off the oracle by {(gp - op).abs().max()}")
+    check(ga.abs().sum().item() > 0, "no albedo gradient")
+    # a power-only fit at the small budget
+    with torch.no_grad():
+        target = rs(a0, torch.full((E,), 1.3, device=dev))
+    fit = fit_materials(target.cpu().numpy(), rects, em_s, T, small,
+                        aa=None, steps=20, fit_albedo=False)
+    check(fit.losses[-1] < fit.losses[0] / 10,
+          f"general fit loss {fit.losses[0]} -> {fit.losses[-1]}")
+    seconds["46"] = time.perf_counter() - t0
+    say("general_diff_renderer", scene="rotated_mini", batches=n_b,
+        photons=int(em.counts.sum()), forward_equals_render_photons=True,
+        photon_xla_16_batches_profile=prof46,
+        forward_s=fwd_s, launches=launches46, forward_ms=fwd_ms,
+        backward_ms=bwd_ms, step_s=step_s,
+        small_budget=dict(batches=len(list(rs.batches())),
+                          albedo_max_abs_err=(ga - oa).abs().max().item(),
+                          power_max_rel_err=((gp - op).abs() / op.abs())
+                          .max().item(), bit_identical_rerun=True),
+        fit_losses=[float(fit.losses[0]), float(fit.losses[-1])],
+        fit_power=fit.power.tolist(), seconds=seconds["46"])
+    del g, rects, r46, fwd
+
+    # 47. --engine photon_oracle of tiny against photon_xla on the card -----
+    t0 = time.perf_counter()
+    tiny = FIXTURES / "tiny.png"
+    flags = ["--samples-per-area", "3000", "--photons-per-batch", "512",
+             "--seed", "7", "--dump-raw"]
+    raws, walls47 = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for engine in ("photon_oracle", "photon_xla"):
+            w, launches, out = cli_render(
+                [str(tiny), "30", "--engine", engine, *flags],
+                pathlib.Path(tmp) / engine, 13)
+            walls47[engine] = dict(wall_s=w, launches={
+                k: v for k, v in launches.items() if v})
+            raws[engine] = np.concatenate([
+                load_tile_raw(str(out / "tiles" / f"tile_{i}.raw"))[1]
+                .reshape(-1, 3) for i in range(13)])
+    tscene, _ = compile_scene(str(tiny), 30.0, cfg)
+    es = exposure_scale(tscene, 3000.0, ph.exposure)
+    es = np.concatenate([es[w.base:w.base + num_tiles(w)]
+                         for w in tscene.walls])
+    ora, xla = (raws[k] / es[:, None] for k in ("photon_oracle",
+                                                 "photon_xla"))
+    close = float(np.isclose(ora, xla, rtol=1e-3, atol=1e-2).mean())
+    total = float(abs(ora.sum() / xla.sum() - 1))
+    check(xla.sum() > 0 and close >= 0.999 and total <= 1e-4,
+          f"photon_oracle against photon_xla: {close} of cells close, "
+          f"total off by {total}")
+    n47 = walls47["photon_oracle"]["launches"].get("threefry_uniform", 0)
+    check(n47 > 0 and set(walls47["photon_oracle"]["launches"])
+          == {"threefry_uniform"},
+          f"photon_oracle launches {walls47['photon_oracle']['launches']}")
+    seconds["47"] = time.perf_counter() - t0
+    say("photon_oracle_vs_photon_xla", scene="tiny", cells_close=close,
+        total_rel_err=total, **walls47, seconds=seconds["47"])
+    say("general_intersector_phases", seconds=seconds,
+        total_s=time.perf_counter() - t_all)
+
+
 def main():
     import torch
 
@@ -3663,7 +4022,8 @@ def main():
                        torch.ones(len(s["em"].counts), device=dev))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fit_materials(target10.cpu().numpy(), s["em"], s["scene"].num_texels,
+    fit_materials(target10.cpu().numpy(), None, s["em"],
+                  s["scene"].num_texels,
                   cfg.photon, aa=pack_aa(s["scene"].walls, device=dev),
                   steps=10, init_albedo=0.6, init_power=0.5)
     torch.cuda.synchronize()
@@ -3716,6 +4076,7 @@ def main():
     redesigned_nearest_phase(nearest, walls17)
     fold_past_the_cap_phase(dev, cfg, make_layout)
     publishing_phases(dev, make_layout)
+    general_intersector_phases(dev, results, make_layout)
 
     print(json.dumps({"kernels": [dict(KERNELS[k], **results[k])
                                   for k in KERNELS]}))

@@ -9,23 +9,26 @@
 
 Same subcommands, positional arguments, flags and defaults as
 `flatmatch_tpu.cli` (its production defaults: --device-rng on, --splat
-inkernel_i8), plus `--device` (default cuda). `render` runs the engines
+inkernel_i8), plus `--device` (default cuda). `render` runs every engine:
 photon_pallas (the default; every --splat, in-kernel or deposit-stream,
 with or without --device-rng, on axis-aligned scenes, and the narrow
 general kernel on others), photon_xla (the general engine, which ignores
---splat and --device-rng as the JAX package's does), ambient_occlusion
-(fused, or --ao-chunked) and radiosity; `fit` runs every --splat too: the
-in-kernel splats (inkernel_i8, inkernel, and fused_i8 and fused, which the
-JAX package's fit maps onto them) with or without --device-rng, and the
-deposit-stream splats (scatter, bucket, bucket_exact), which draw threefry
-either way, as the JAX package's fit does. `render` and `package` take
+--splat and --device-rng as the JAX package's does), photon_oracle (the
+NumPy oracle on the general engine's draws), ambient_occlusion (fused, or
+--ao-chunked) and radiosity, on scenes of any orientation; `fit` ignores
+--engine, as the JAX package's does, and runs the general differentiable
+renderer on a scene without an axis-aligned table; it runs every --splat
+too: the in-kernel splats (inkernel_i8, inkernel, and fused_i8 and fused,
+which the JAX package's fit maps onto them) with or without --device-rng,
+and the deposit-stream splats (scatter, bucket, bucket_exact), which draw
+threefry either way, as the JAX package's fit does. `render` and `package` take
 `--checkpoint` (the photon engines resume an interrupted render bit for
 bit), `render` takes `--preview`, and `render`, `fit` and `package` take
 `--profile DIR` (a torch.profiler trace). `package` renders and assembles
 the REST tree, `serve` serves it, `debug` writes the first-hit picture.
-What the port does not run (`--engine photon_oracle`, `fit --engine
-photon_xla`, `fit --checkpoint`, the multi-host flags) exits with an error
-that names ROADMAP.md rather than being ignored.
+What the port does not run (`fit --checkpoint`, which the JAX package's fit
+parses and ignores, and the multi-host flags) exits with an error that
+names ROADMAP.md rather than being ignored.
 """
 from __future__ import annotations
 
@@ -36,18 +39,15 @@ import sys
 
 from .config import DEFAULT_CONFIG, Engine
 
-PORTED_ENGINES = tuple(e.value for e in (
-    Engine.PHOTON_PALLAS, Engine.PHOTON_XLA, Engine.AMBIENT_OCCLUSION,
-    Engine.RADIOSITY))
-
 
 def _add_engine_flags(p: argparse.ArgumentParser):
     p.add_argument(
         "--engine",
         choices=[e.value for e in Engine],
         default=DEFAULT_CONFIG.engine.value,
-        help="illumination engine (photon_oracle is not ported; fit runs "
-        "photon_pallas's differentiable renderer, not photon_xla's)",
+        help="illumination engine (fit ignores it: it runs the wide "
+        "differentiable renderer on axis-aligned scenes, the general one "
+        "on others)",
     )
     p.add_argument(
         "--samples-per-area",
@@ -173,11 +173,6 @@ def _outside_slice(args) -> list:
     if args.cmd == "debug":
         return []
     out = []
-    if args.engine not in PORTED_ENGINES:
-        out.append(f"--engine {args.engine}")
-    elif args.cmd == "fit" and args.engine == Engine.PHOTON_XLA.value:
-        out.append("fit --engine photon_xla (the general differentiable "
-                   "renderer)")
     if args.cmd == "fit" and args.checkpoint is not None:
         # the JAX package's fit parses --checkpoint and ignores it
         out.append("fit --checkpoint")

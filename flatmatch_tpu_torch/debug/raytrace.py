@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..ops.device_scene import Rects
-from ..ops.intersect import nearest_hit, rays_per_tile
+from ..ops.intersect import nearest_hit
 from ..scene.geometry import Scene
 
 f32 = np.float32
@@ -49,9 +49,10 @@ def render_first_hit(
     scene: Scene, rects: Rects, camera: Camera = Camera()
 ) -> np.ndarray:
     """[H, W, 4] RGBA first-hit render; un-hit pixels stay transparent black
-    (the reference leaves them at the createImage default). The rays run
-    in chunks of `rays_per_tile`, so no [rays, rects] intermediate passes
-    128 MB; ties go to the first rect, as in the JAX package."""
+    (the reference leaves them at the createImage default). All rays go
+    through one `nearest_hit` (one kernel launch on the card; on the CPU
+    the plain version's tiles keep every [rays, rects] intermediate under
+    128 MB); ties go to the first rect, as in the JAX package."""
     cam_pos = np.asarray(camera.position, f32)
     cam_dir = np.asarray(camera.direction, f32)
     cam_dir = cam_dir / np.linalg.norm(cam_dir)
@@ -72,11 +73,8 @@ def render_first_hit(
     dev = rects.pos.device
     dirs_flat = torch.from_numpy(dirs.reshape(-1, 3)).to(dev)
     src = torch.from_numpy(cam_pos).to(dev).expand(dirs_flat.shape)
-    step = rays_per_tile(rects.n.shape[0])
-    parts = [nearest_hit(src[c:c + step], dirs_flat[c:c + step], rects)
-             for c in range(0, dirs_flat.shape[0], step)]
-    dist = torch.cat([p[0] for p in parts]).cpu().numpy()
-    hit = torch.cat([p[1] for p in parts]).cpu().numpy()
+    dist, hit = nearest_hit(src, dirs_flat, rects)
+    dist, hit = dist.cpu().numpy(), hit.cpu().numpy()
 
     colors = rect_index_colors(len(scene.walls))
     img = np.zeros((h * w, 4), np.uint8)

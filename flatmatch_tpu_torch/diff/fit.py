@@ -19,10 +19,9 @@ import numpy as np
 import torch
 
 from ..config import PhotonConfig
-from ..engines.photon_wide import unsupported
 from ..ops.aa_scene import AARects
-from ..ops.device_scene import Emitters
-from .render import make_diff_renderer_wide
+from ..ops.device_scene import Emitters, Rects
+from .render import make_diff_renderer, make_diff_renderer_wide
 
 
 @dataclasses.dataclass
@@ -52,13 +51,26 @@ def init_params(n_rects: int, n_em: int, cfg: PhotonConfig,
                                 device=device)}
 
 
+def make_renderer(rects: Rects, emitters: Emitters, num_texels: int,
+                  cfg: PhotonConfig, aa: Optional[AARects] = None):
+    """The differentiable renderer for a scene (fit.py:48-81 as it chooses
+    on a TPU, without the mesh): the wide kernels' renderer when the scene
+    has an axis-aligned table `aa` (albedo [len(aa.perm)]), the general
+    engine's (make_diff_renderer, albedo [N_pad] in pack_rects order)
+    otherwise."""
+    if aa is not None:
+        return make_diff_renderer_wide(emitters, num_texels, cfg, aa)
+    return make_diff_renderer(rects, emitters, num_texels, cfg)
+
+
 def fit_materials(
     target,
+    rects: Optional[Rects],
     emitters: Emitters,
     num_texels: int,
     cfg: PhotonConfig,
     *,
-    aa: Optional[AARects],
+    aa: Optional[AARects] = None,
     steps: int = 100,
     learning_rate: float = 0.1,
     init_albedo: Optional[float] = None,
@@ -69,19 +81,23 @@ def fit_materials(
 ) -> FitResult:
     """Adam fit of (albedo [N_rects], power [N_emitters]) to a target
     lightmap [num_texels, 3] (the pre-exposure texel arena the renderer
-    returns) on the scene table's device.
+    returns) on the scene table's device, through `make_renderer`: with
+    `aa` the wide renderer (N_rects = len(aa.perm); `rects` may be None),
+    without it the general renderer on `rects` (N_rects its padded rows,
+    in pack_rects order).
 
     Loss = mean squared error over the target's mean square. Parameters not
     being fit are held at their start (detached). `params`, if given,
     replaces the start built from init_albedo/init_power. The per-step
     losses stay on the device and are read back once at the end."""
-    if aa is None:
-        raise unsupported("the fit of a scene with non-axis-aligned rects "
-                          "(the general differentiable renderer)")
-    render = make_diff_renderer_wide(emitters, num_texels, cfg, aa)
-    dev = aa.fields.device
+    if aa is None and rects is None:
+        raise ValueError("fit_materials needs the rect table or the "
+                         "axis-aligned table")
+    render = make_renderer(rects, emitters, num_texels, cfg, aa)
+    dev = aa.fields.device if aa is not None else rects.n.device
+    n_rects = len(aa.perm) if aa is not None else rects.n.shape[0]
     if params is None:
-        params = init_params(len(aa.perm), len(emitters.counts), cfg,
+        params = init_params(n_rects, len(emitters.counts), cfg,
                              init_albedo, init_power, dev)
     a_logit = params["a_logit"].detach().clone().to(dev).requires_grad_()
     p_log = params["p_log"].detach().clone().to(dev).requires_grad_()
@@ -152,7 +168,7 @@ def fit_layout(
 
     from ..io.tiles import load_tile_raw, save_tiles
     from ..ops.aa_scene import pack_aa
-    from ..ops.device_scene import exposure_scale, pack_emitters
+    from ..ops.device_scene import exposure_scale, pack_emitters, pack_rects
     from ..render import compile_scene
     from ..scene.rectangle import num_tiles
 
@@ -179,9 +195,12 @@ def fit_layout(
     emitters = pack_emitters(scene, cfg.photon.samples_per_area,
                              cfg.photon.window_color, cfg.photon.light_color,
                              device=device)
+    # the wide renderer where the walls have an axis-aligned table, the
+    # general one otherwise (non-axis-aligned rects, 2^24 texels or more)
+    aa = pack_aa(scene.walls, device=device)
     res = fit_materials(
-        arena, emitters, scene.num_texels, cfg.photon,
-        aa=pack_aa(scene.walls, device=device), steps=steps,
+        arena, pack_rects(scene.walls, device=device), emitters,
+        scene.num_texels, cfg.photon, aa=aa, steps=steps,
         learning_rate=learning_rate, fit_albedo=fit_albedo,
         fit_power=fit_power, init_albedo=init_albedo, init_power=init_power,
     )

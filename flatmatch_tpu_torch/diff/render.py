@@ -1,8 +1,10 @@
 """Differentiable photon rendering: gradients with respect to per-rect albedo
-and per-emitter power, on the wide kernels.
+and per-emitter power, on the wide kernels and on the general engine.
 
-Counterpart of flatmatch_tpu/diff/render.py `make_diff_renderer_wide`, every
-tier of it (diff/render.py:363-500):
+Counterpart of flatmatch_tpu/diff/render.py. `make_diff_renderer` and
+`make_autodiff_oracle` (diff/render.py:60-142, :724-758) run the general
+engine (engines/photon.py) on a scene of any orientation; the rest is
+`make_diff_renderer_wide`, every tier of it (diff/render.py:363-500):
 - the in-kernel tiers: the 7-bit splat for `inkernel_i8` and `fused_i8`,
   bf16 colors summed in f32 for `inkernel` and `fused` (as the JAX renderer
   maps them, :364-366), with the counter-hash draws (`device_rng`) or the
@@ -35,10 +37,10 @@ import numpy as np
 import torch
 
 from ..config import PhotonConfig
-from ..engines import photon_wide as pw
+from ..engines import photon, photon_wide as pw
 from ..ops import rng, threefry
 from ..ops.aa_scene import AARects
-from ..ops.device_scene import Emitters
+from ..ops.device_scene import Emitters, Rects
 from ..ops.splat import fixed_point_scale, fused_splat_add, stream_bound
 
 IN_KERNEL_TIERS = ("inkernel", "inkernel_i8", "fused", "fused_i8")
@@ -359,3 +361,133 @@ def make_diff_renderer_wide(emitters: Emitters, num_texels: int,
     folds it with `stream_fold`. `tail_shrink` runs each emitter's last
     batch on a smaller grid, bit-identically."""
     return WideDiffRenderer(emitters, num_texels, cfg, aa, tail_shrink)
+
+
+class DiffRenderer:
+    """render(albedo [N_pad], power [E]) -> lightmap [num_texels, 3] on the
+    general engine, differentiable in both (make_diff_renderer). Runs on
+    the rect table's device: every nearest hit launches
+    `csrc/general_nearest.cu` on the card, its plain version on the CPU.
+
+    Forward: every batch through engines/photon.trace_batch at the given
+    albedo (per rect of `pack_rects`, padding included) and power[e], with
+    the batch's threefry uniforms (csrc/threefry.cu on the card) and the
+    f32 stream splat (row 16); at albedo cfg.albedo and power 1 it is
+    engines/photon.render_photons bit for bit. Only the parameters are
+    saved. Backward: trajectories depend only on the draws and the
+    geometry, never on the parameters (diff/render.py:14-27 of the JAX
+    package), so each batch is replayed under autograd through
+    trace_deposits, and the cotangent of its deposit colors is g at their
+    texels, the VJP of the scatter-add (a dead deposit's color is a
+    torch.where of 0, whose gradient masks it). torch.autograd.grad gives
+    the batch's d_albedo and d_power[e]; the per-rect albedo sums run in a
+    fixed order (engines/photon.rect_albedo), so with no float atomics two
+    backward passes give the same bits."""
+
+    def __init__(self, rects: Rects, emitters: Emitters, num_texels: int,
+                 cfg: PhotonConfig):
+        B = int(cfg.photons_per_batch)
+        if B < 1:
+            raise ValueError(f"photons_per_batch must be >= 1, got {B}")
+        from ..engines.schedule import emitter_slice
+
+        self.rects, self.cfg, self.B = rects, cfg, B
+        self.num_texels = int(num_texels)
+        self.device = rects.n.device
+        self.U = pw.uniforms_per_photon(cfg.max_depth)
+        # the JAX renderer's schedule (_emitter_batches, :46-57), every
+        # batch at B photons
+        self.schedule = pw.emitter_schedule(emitters.counts, B)
+        self.slices = {e: emitter_slice(emitters, e)
+                       for e, *_ in self.schedule}
+
+    def batches(self):
+        """(emitter, global batch, live photons) of every batch in order."""
+        for e, gb, nv, _ in pw.schedule_batches(self.schedule, self.B,
+                                                 tail_shrink=False):
+            yield e, gb, nv
+
+    def uniforms(self, gb: int) -> torch.Tensor:
+        """Global batch gb's [B, U] threefry uniforms."""
+        return threefry.batch_uniforms(self.cfg.seed, gb, self.B, self.U,
+                                       self.device)
+
+    def deposits(self, albedo, power_e, e, gb, nv):
+        """One batch's deposits (texel ids [B, D], colors [B, D, 3])."""
+        return photon.trace_deposits(self.rects, self.slices[e],
+                                     self.uniforms(gb), nv, self.cfg,
+                                     albedo, power_e)
+
+    def forward_loop(self, albedo, power) -> torch.Tensor:
+        lm = torch.zeros((self.num_texels, 3), dtype=torch.float32,
+                         device=self.device)
+        for e, gb, nv in self.batches():
+            photon.trace_batch(lm, self.rects, self.slices[e],
+                               self.uniforms(gb), nv, self.cfg,
+                               albedo=albedo, power=power[e])
+        return lm
+
+    def backward_replay(self, albedo, power, g):
+        d_albedo = torch.zeros_like(albedo)
+        d_power = torch.zeros_like(power)
+        for e, gb, nv in self.batches():
+            with torch.enable_grad():
+                a = albedo.detach().requires_grad_()
+                p = power[e].detach().requires_grad_()
+                ids, col = self.deposits(a, p, e, gb, nv)
+                da, dp = torch.autograd.grad(
+                    col, (a, p), g[ids.long()], allow_unused=True)
+            if da is not None:
+                d_albedo += da
+            d_power[e] += dp
+        return d_albedo, d_power
+
+    def __call__(self, albedo: torch.Tensor,
+                 power: torch.Tensor) -> torch.Tensor:
+        return _DiffRender.apply(albedo, power, self)
+
+
+class _DiffRender(torch.autograd.Function):
+    """Saves only (albedo, power); the backward replays the trajectories."""
+
+    @staticmethod
+    def forward(ctx, albedo, power, r):
+        ctx.r = r
+        ctx.save_for_backward(albedo, power)
+        return r.forward_loop(albedo, power)
+
+    @staticmethod
+    def backward(ctx, g):
+        albedo, power = ctx.saved_tensors
+        d_albedo, d_power = ctx.r.backward_replay(albedo, power,
+                                                  g.contiguous())
+        return d_albedo, d_power, None
+
+
+def make_diff_renderer(rects: Rects, emitters: Emitters, num_texels: int,
+                       cfg: PhotonConfig) -> DiffRenderer:
+    """Differentiable renderer on the general engine
+    (flatmatch_tpu.diff.render.make_diff_renderer): fn(albedo [N_pad],
+    power [E]) -> lightmap [num_texels, 3], with gradients by trajectory
+    replay (DiffRenderer). Deterministic for a fixed cfg.seed."""
+    return DiffRenderer(rects, emitters, num_texels, cfg)
+
+
+def make_autodiff_oracle(rects: Rects, emitters: Emitters, num_texels: int,
+                         cfg: PhotonConfig):
+    """The plain-autograd twin of `make_diff_renderer`
+    (flatmatch_tpu.diff.render.make_autodiff_oracle): every batch's
+    deposits added with an out-of-place f32 index_add, autograd keeping
+    every batch's graph until the backward. The gradient oracle of the
+    replay; its memory grows with the budget, so small budgets only."""
+    r = DiffRenderer(rects, emitters, num_texels, cfg)
+
+    def render(albedo: torch.Tensor, power: torch.Tensor) -> torch.Tensor:
+        lm = torch.zeros((r.num_texels, 3), dtype=torch.float32,
+                         device=r.device)
+        for e, gb, nv in r.batches():
+            ids, col = r.deposits(albedo, power[e], e, gb, nv)
+            lm = lm.index_add(0, ids.reshape(-1).long(), col.reshape(-1, 3))
+        return lm
+
+    return render

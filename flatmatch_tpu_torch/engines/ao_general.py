@@ -10,8 +10,11 @@ surface frame from 1e-5 along each, takes the nearest hit over every rect
 sum_k dist_k * fac_k / (sum_k fac_k * normalization) in all three channels
 (performAmbientOcclusionNative, photonmap.c:436-491); mipmap slots stay 0.
 The JAX engine has no Pallas kernel here: XLA fuses the [rays, N] work.
-The port casts cfg.texels_per_chunk texels' rays at a time, in tiles of
-rays (`ops/intersect.rays_per_tile`), on the rect table's device.
+The port casts cfg.texels_per_chunk texels' rays at a time on the rect
+table's device, each chunk one `ops/intersect.nearest_hit`: a launch of
+`csrc/general_nearest.cu` on the card, the plain version in tiles of rays
+on the CPU. The nearest distance is the minimum of the plain version's
+[rays, N] distances, exactly.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import torch
 from ..config import AoConfig
 from ..ops.device_scene import Rects
 from ..ops.geosphere import geosphere
-from ..ops.intersect import intersect_all, rays_per_tile
+from ..ops.intersect import nearest_hit
 from ..scene.geometry import Scene
 from ..scene.rectangle import num_tiles
 from .ao import NUDGE, tile_centers, wall_directions
@@ -36,10 +39,7 @@ def ao_chunk(rects: Rects, centers, dirs, fac, sky_distance: float,
     C, K = centers.shape[0], dirs.shape[0]
     src = (centers[:, None, :] + dirs[None, :, :] * NUDGE).reshape(C * K, 3)
     d = dirs[None, :, :].expand(C, K, 3).reshape(C * K, 3)
-    step = rays_per_tile(rects.n.shape[0])
-    dist = torch.cat([torch.amin(intersect_all(src[r:r + step],
-                                               d[r:r + step], rects), dim=-1)
-                      for r in range(0, C * K, step)])
+    dist, _ = nearest_hit(src, d, rects)
     dist = torch.where(torch.isfinite(dist), dist,
                        torch.full_like(dist, sky_distance)).reshape(C, K)
     dist_sum = torch.sum(dist * fac[None, :], dim=-1)

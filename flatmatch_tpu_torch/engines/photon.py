@@ -1,5 +1,5 @@
 """The general photon engine: brute-force nearest hit over every rect of a
-scene of any orientation, in plain PyTorch on [B, N] tensors.
+scene of any orientation, the bounces in PyTorch on [B] tensors.
 
 Counterpart of flatmatch_tpu/engines/photon.py, the JAX package's XLA
 engine (`--engine photon_xla`, and `photon_pallas` on arenas of 2^24 texels
@@ -12,8 +12,9 @@ resamples the cosine lobe and attenuates by the floor tint, then the
 albedo; the deposit is the attenuated color.
 
 The JAX engine has no Pallas kernel: XLA fuses its [B, N] work. Here each
-batch runs in tiles of photons (`ops/intersect.rays_per_tile`), so that no
-[B, N] tensor passes 128 MB, and writes a deposit stream that
+bounce's nearest hit is one launch of `csrc/general_nearest.cu` on the card
+(`ops/intersect.nearest_hit`; on the CPU its plain version, in tiles of
+rays), and each batch writes a deposit stream that
 `ops/splat.fused_splat_add` adds into the lightmap with f32 colors: on the
 card the int64 fixed-point f32 splat (`csrc/splat_stream.cu`), exact and
 the same bits run to run, where the JAX engine adds each bounce with an
@@ -29,7 +30,7 @@ import torch
 
 from ..config import PhotonConfig
 from ..ops.device_scene import Emitters, Rects
-from ..ops.intersect import nearest_hit, rays_per_tile
+from ..ops.intersect import nearest_hit
 from ..ops.linalg import dot3
 from ..ops.sampling import TWO_PI_REF, build_base
 from ..ops.splat import fused_splat_add, stream_bound
@@ -72,15 +73,50 @@ def emit(em: EmitterSlice, uniforms, eps: float):
     return pos, direc
 
 
-def _trace_tile(rects: Rects, em: EmitterSlice, uniforms, pid, n_valid,
-                cfg: PhotonConfig, albedo, power):
-    """Deposits of photons `pid` (uniforms [C, U]): ids [C, D] int32 (0
-    where dead) and colors [C, D, 3] (0 where dead)."""
+class _RectGather(torch.autograd.Function):
+    """albedo[hit] whose backward sums the cotangent per rect in a fixed
+    order (a stable sort by rect and a segment sum), where indexing's own
+    backward may add with float atomics on the card: two backward passes
+    give the same bits."""
+
+    @staticmethod
+    def forward(ctx, albedo, hit):
+        ctx.save_for_backward(hit)
+        ctx.n = albedo.shape[0]
+        return albedo[hit]
+
+    @staticmethod
+    def backward(ctx, g):
+        (hit,) = ctx.saved_tensors
+        rect, order = torch.sort(hit, stable=True)
+        lengths = torch.bincount(rect, minlength=ctx.n)
+        return torch.segment_reduce(g[order], "sum", lengths=lengths), None
+
+
+def rect_albedo(albedo: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
+    """albedo[hit] ([N] per-rect values at [B] int64 rect ids), whose
+    gradient is summed without float atomics (_RectGather)."""
+    if torch.is_grad_enabled() and albedo.requires_grad:
+        return _RectGather.apply(albedo, hit)
+    return albedo[hit]
+
+
+def trace_deposits(rects: Rects, em: EmitterSlice, uniforms: torch.Tensor,
+                   n_valid, cfg: PhotonConfig,
+                   albedo: Optional[torch.Tensor] = None,
+                   power: Optional[torch.Tensor] = None):
+    """The deposits of one batch (uniforms [B, U] f32): texel ids [B, D]
+    int32 and colors [B, D, 3] f32, both 0 for a dead photon and for a
+    bounce after a miss. `albedo` optionally gives a per-rect [N] albedo in
+    place of cfg.albedo; `power` scales the emitter color. Differentiable
+    in albedo and power (the general diff renderer replays it under
+    autograd)."""
     eps = _f(cfg.self_intersect_eps)
     dev = uniforms.device
     tint = torch.tensor(np.asarray(cfg.floor_tint, np.float32), device=dev)
     one3 = torch.ones((1, 3), dtype=torch.float32, device=dev)
     C = uniforms.shape[0]
+    pid = torch.arange(C, dtype=torch.int64, device=dev)
 
     pos, direc = emit(em, uniforms, eps)
     color = em.color.expand(C, 3).to(torch.float32)
@@ -116,7 +152,8 @@ def _trace_tile(rects: Rects, em: EmitterSlice, uniforms, pid, n_valid,
         on_floor = pos[:, 2] < _f(cfg.floor_tint_z_threshold)
         tnt = torch.where(on_floor[:, None], tint[None, :], one3)
         alb = (_f(cfg.albedo) if albedo is None
-               else albedo[hit.long()][:, None].to(torch.float32))
+               else rect_albedo(albedo, hit.long())[:, None].to(
+                   torch.float32))
         color = torch.where(diffuse[:, None], color * tnt * alb, color)
         direc = torch.where(diffuse[:, None], dir_diffuse, dir_mirror)
 
@@ -125,24 +162,6 @@ def _trace_tile(rects: Rects, em: EmitterSlice, uniforms, pid, n_valid,
                                 torch.zeros_like(color)))
         pos = pos + direc * eps
     return torch.stack(ids, 1), torch.stack(cols, 1)
-
-
-def trace_deposits(rects: Rects, em: EmitterSlice, uniforms: torch.Tensor,
-                   n_valid, cfg: PhotonConfig,
-                   albedo: Optional[torch.Tensor] = None,
-                   power: Optional[torch.Tensor] = None):
-    """The deposits of one batch (uniforms [B, U] f32): texel ids [B, D]
-    int32 and colors [B, D, 3] f32, both 0 for a dead photon and for a
-    bounce after a miss. `albedo` optionally gives a per-rect [N] albedo in
-    place of cfg.albedo; `power` scales the emitter color."""
-    B = uniforms.shape[0]
-    step = rays_per_tile(rects.n.shape[0])
-    pid = torch.arange(B, dtype=torch.int64, device=uniforms.device)
-    parts = [_trace_tile(rects, em, uniforms[c0:c0 + step],
-                         pid[c0:c0 + step], n_valid, cfg, albedo, power)
-             for c0 in range(0, B, step)]
-    return (torch.cat([p[0] for p in parts]),
-            torch.cat([p[1] for p in parts]))
 
 
 def splat_bound(cfg: PhotonConfig, batch: int, power=None) -> float:

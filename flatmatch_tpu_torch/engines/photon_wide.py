@@ -75,17 +75,6 @@ MAX_SUBLANES = 64                  # the JAX engine's photon-block height
 INKERNEL_MODES = ("inkernel", "inkernel_i8")
 
 
-def unsupported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to flatmatch_tpu_torch yet; the port runs "
-        f"the photon render (both general engines on any scene, every "
-        f"splat on axis-aligned ones), the ambient-occlusion engine, "
-        f"the fit and the radiosity engine on axis-aligned scenes, and "
-        f"package, serve, debug, --checkpoint, --preview and --profile "
-        f"(see ROADMAP.md)"
-    )
-
-
 def check_i8_accumulator(cfg: PhotonConfig, batch_size: int):
     """The int32 accumulator wraps past 2^31; the per-batch worst case is
     batch * max_depth * 127 per texel."""

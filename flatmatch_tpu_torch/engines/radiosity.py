@@ -1,9 +1,9 @@
-"""Monte-Carlo form-factor radiosity engine (axis-aligned scenes).
+"""Monte-Carlo form-factor radiosity engine.
 
-Counterpart of flatmatch_tpu/engines/radiosity.py on its single-device AA
-path (`render_radiosity` with `_form_factors_device(use_aa=True,
-compact_rows=True)`), after performRadiosityNative (radiosityNative.c:
-92-268):
+Counterpart of flatmatch_tpu/engines/radiosity.py on its single-device
+paths (`render_radiosity` with `_form_factors_device(use_aa=True,
+compact_rows=True)` on a scene with an axis-aligned table, `use_aa=False`
+on any other), after performRadiosityNative (radiosityNative.c:92-268):
 
   1. extend the rect set with windows and lights, their texel ranges
      appended after the wall arena (:104-127);
@@ -12,7 +12,10 @@ compact_rows=True)`), after performRadiosityNative (radiosityNative.c:
      cosine-distributed rays, drawn with jax.random's threefry
      (ops/threefry.py, bit for bit), record the level-0 texel id they hit
      (-1 on a miss). The rays of each chunk are cast by one launch of
-     `ops/aa_query.aa_nearest` (`csrc/aa_nearest.cu`);
+     `ops/aa_query.aa_nearest` (`csrc/aa_nearest.cu`) on a scene with an
+     axis-aligned table, else by `form_factor_chunk`: one launch of
+     `ops/intersect.nearest_hit` (`csrc/general_nearest.cu`) and the texel
+     lookup of `ops/tile.texel_index`;
   4. `iterations` gathers with reflectance rho:
          dest[t] = sum_j src[ids[t, j]]
          src     = src * (1 - rho) + dest * rho / rays
@@ -38,12 +41,14 @@ from ..config import RadiosityConfig
 from ..ops import threefry
 from ..ops.aa_query import aa_nearest
 from ..ops.aa_scene import AARects, pack_aa
+from ..ops.device_scene import Rects, pack_rects
+from ..ops.intersect import nearest_hit
 from ..ops.mipmap import MipmapPlan, apply_plan, build_plan
 from ..ops.sampling import TWO_PI_REF, build_base
+from ..ops.tile import texel_index
 from ..scene.geometry import Scene
 from ..scene.rectangle import Rect, num_mipmap_texels, num_tiles
 from .ao import NUDGE, tile_centers
-from .photon_wide import unsupported
 
 f32 = np.float32
 GATHER_IDS = 1 << 22            # ids gathered per step of the relaxation
@@ -88,12 +93,28 @@ def ff_rays(centers: torch.Tensor, normal: torch.Tensor, key, rays: int):
     return src.reshape(C * rays, 3), direc.reshape(C * rays, 3)
 
 
-def form_factors(scene: Scene, aa: AARects, cfg: RadiosityConfig
+def form_factor_chunk(rects: Rects, centers: torch.Tensor,
+                      normal: torch.Tensor, key, rays: int) -> torch.Tensor:
+    """Hit-texel ids [C, rays] int32 of `rays` cosine rays from each of [C]
+    texel centers over the general table `rects` (radiosity.
+    _form_factor_chunk): ff_rays, the nearest hit, the texel of the hit
+    point, -1 where the ray escaped."""
+    C = centers.shape[0]
+    src, direc = ff_rays(centers, normal, key, rays)
+    dist, hit = nearest_hit(src, direc, rects)
+    found = torch.isfinite(dist)
+    p = src + direc * torch.where(found, dist, torch.zeros_like(dist))[:, None]
+    ids = texel_index(rects, hit, p)
+    return torch.where(found, ids, torch.full_like(ids, -1)).reshape(C, rays)
+
+
+def form_factors(scene: Scene, table, cfg: RadiosityConfig
                  ) -> torch.Tensor:
     """The source-texel id table [level-0 wall texels, rays] int32 on the
-    scene table's device (-1 where the ray escaped). `aa` packs the
-    EXTENDED rect set. Chunk ci of wall wi draws with key
-    fold_in(fold_in(PRNGKey(seed), wi), ci), as the JAX package does.
+    scene table's device (-1 where the ray escaped). `table` packs the
+    EXTENDED rect set: an `AARects` (each chunk one `aa_nearest`) or the
+    general `Rects` (`form_factor_chunk`). Chunk ci of wall wi draws with
+    key fold_in(fold_in(PRNGKey(seed), wi), ci), as the JAX package does.
 
     A wall's last chunk holds fewer than texels_per_chunk texels; the JAX
     package pads it and discards the padded rows. Element i of a threefry
@@ -101,7 +122,8 @@ def form_factors(scene: Scene, aa: AARects, cfg: RadiosityConfig
     gives the same rays, and the padding is not traced here."""
     rays = int(cfg.rays_per_texel)
     chunk = int(cfg.texels_per_chunk)
-    dev = aa.fields.device
+    general = isinstance(table, Rects)
+    dev = table.n.device if general else table.fields.device
     rows = sum(num_tiles(w) for w in scene.walls)
     ids = torch.full((rows, rays), -1, dtype=torch.int32, device=dev)
     key = threefry.prng_key(cfg.seed)
@@ -113,8 +135,12 @@ def form_factors(scene: Scene, aa: AARects, cfg: RadiosityConfig
         for ci, s in enumerate(range(0, T, chunk)):
             c = centers[s:s + chunk]
             k = threefry.fold_in(threefry.fold_in(key, wi), ci)
-            src, direc = ff_rays(c, normal, k, rays)
-            _, tex = aa_nearest(aa.fields, aa.group_counts, src, direc)
+            if general:
+                tex = form_factor_chunk(table, c, normal, k, rays)
+            else:
+                src, direc = ff_rays(c, normal, k, rays)
+                _, tex = aa_nearest(table.fields, table.group_counts, src,
+                                    direc)
             ids[row0 + s:row0 + s + c.shape[0]] = tex.reshape(-1, rays)
         row0 += T
     return ids
@@ -155,26 +181,29 @@ def relax(src: torch.Tensor, ids: torch.Tensor, l0_idx: torch.Tensor,
 
 
 def prepare(scene: Scene, cfg: RadiosityConfig, device="cuda"):
-    """(extended rects, their scene table on `device`, the emissive arena
+    """(extended rects, their table on `device`, the emissive arena
     [total, 3] on `device`): window texels (30,30,30), light texels
-    (28,28,32), radiosityNative.c:135-145."""
+    (28,28,32), radiosityNative.c:135-145. The table is the axis-aligned
+    `AARects` where `pack_aa` gives one, else the general `Rects` of
+    `pack_rects` (a scene with non-axis-aligned rects or a texel arena of
+    2^24 or more), as the JAX package's render_radiosity chooses."""
     rects, total, first_window, first_light = extended_rects(scene)
-    aa = pack_aa(rects, device=device)
-    if aa is None:
-        raise unsupported("radiosity of a scene with non-axis-aligned rects "
-                          "or a texel arena of 2^24 or more")
+    table = pack_aa(rects, device=device)
+    if table is None:
+        table = pack_rects(rects, device=device)
     src = np.zeros((total, 3), f32)
     src[first_window:first_light] = np.asarray(cfg.window_emission, f32)
     src[first_light:total] = np.asarray(cfg.light_emission, f32)
-    return rects, aa, torch.from_numpy(src).to(aa.fields.device)
+    return rects, table, torch.from_numpy(src).to(device)
 
 
 def render_radiosity(scene: Scene, cfg: RadiosityConfig,
                      device="cuda") -> np.ndarray:
     """Radiosity of the scene's walls on `device`: the [num_texels, 3]
-    arena (radiosity.render_radiosity)."""
-    rects, aa, src = prepare(scene, cfg, device)
-    ids = form_factors(scene, aa, cfg)
+    arena (radiosity.render_radiosity): the axis-aligned form factors
+    where the extended rects have a table, else the general ones."""
+    rects, table, src = prepare(scene, cfg, device)
+    ids = form_factors(scene, table, cfg)
     l0_idx = torch.from_numpy(level0_arena_indices(scene)).to(src.device)
     out = relax(src, ids, l0_idx, build_plan(rects), cfg)
     return out[:scene.num_texels].cpu().numpy()

@@ -2,9 +2,10 @@
 compile -> geometry JSON -> illumination engine -> per-wall lightmap tiles
 (main.c:17-101).
 
-Counterpart of flatmatch_tpu/render.py for four engines: the photon render
-(photon_pallas and photon_xla, then exposure normalization), ambient
-occlusion and radiosity (`run_engine` says which route runs where), with
+Counterpart of flatmatch_tpu/render.py for every engine: the photon render
+(photon_pallas, photon_xla and the NumPy photon_oracle, then exposure
+normalization), ambient occlusion and radiosity (`run_engine` says which
+route runs where), with
 the photon engines' checkpoint and resume and progressive previews. Every
 function that touches tensors takes an explicit `device`. The port runs
 in one process, so it writes every artifact itself (the JAX package's
@@ -19,7 +20,6 @@ from typing import Optional
 import numpy as np
 
 from .config import DEFAULT_CONFIG, Engine, RenderConfig
-from .engines.photon_wide import unsupported
 from .io import tiles as tiles_io
 from .ops.device_scene import exposure_scale, pack_emitters
 from .scene import collision, geometry, image as im, layout
@@ -113,9 +113,13 @@ def run_engine(scene: geometry.Scene, cfg: RenderConfig,
       (engines/photon_narrow.py); on an arena of 2^24 texels or more, the
       general engine;
     - photon_xla: the general engine (engines/photon.py);
+    - photon_oracle: the NumPy oracle on the host
+      (engines/photon_oracle_driver.py), on the general engine's draws,
+      made on `device`;
     - ambient_occlusion: fused by default, chunked with cfg.ao.fused off;
       on a scene without a table, the general AO (engines/ao_general.py);
-    - radiosity, on scenes with a table.
+    - radiosity: the axis-aligned form factors on a scene with a table,
+      the general ones (csrc/general_nearest.cu) on any other.
 
     The general engines draw threefry and splat exactly whatever cfg.splat
     and cfg.device_rng say, as in the JAX package. The photon engines'
@@ -151,8 +155,17 @@ def run_engine(scene: geometry.Scene, cfg: RenderConfig,
         from .engines import radiosity
 
         return radiosity.render_radiosity(scene, cfg.radiosity, device)
+    if cfg.engine is Engine.PHOTON_ORACLE:
+        from .engines import photon_oracle_driver
+
+        lightmap = photon_oracle_driver.render_photons_np(
+            scene, cfg.photon, device)
+        scale = exposure_scale(
+            scene, cfg.photon.samples_per_area, cfg.photon.exposure
+        )
+        return lightmap * scale[:, None]
     if not photon_engine:
-        raise unsupported(f"engine {cfg.engine.value!r}")
+        raise ValueError(f"unknown engine {cfg.engine}")
     emitters = pack_emitters(
         scene, cfg.photon.samples_per_area, cfg.photon.window_color,
         cfg.photon.light_color, device=device,

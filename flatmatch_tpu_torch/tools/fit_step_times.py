@@ -74,7 +74,7 @@ def measure(root: str) -> dict:
                        torch.ones(n_em, device=dev)).cpu().numpy()
 
         def fit(steps, cfg=cfg, target=target):
-            fit_materials(target, em, scene.num_texels, cfg, aa=aa,
+            fit_materials(target, None, em, scene.num_texels, cfg, aa=aa,
                           steps=steps, init_albedo=0.6, init_power=0.5)
 
         fit(2)

@@ -5,7 +5,8 @@ digest their outputs.
 
     python3 flatmatch_tpu_torch/tools/trace_kernel_times.py \
         [--scenes mini,4x4,13x13] [--placements K] [--kernels A,B,...] \
-        [--routes] [--ao-walls K] ROOT[+VARIANT] [ROOT[+VARIANT] ...]
+        [--routes] [--ao-walls K] [--general K] ROOT[+VARIANT] \
+        [ROOT[+VARIANT] ...]
 
 Each ROOT is a checkout of this repository (for example a `git archive` of
 another commit unpacked into a directory that .gitignore lists);
@@ -66,7 +67,17 @@ through `--engine radiosity` and `--engine ambient_occlusion` (fused and
 runs only the AO of the 4x4 tiling, fused and chunked: a digest of each,
 K wall seconds of each in turns, and one profiled render of each (the
 card's ms by kernel group and busy share); give the roots in turns (A B B
-A ...) to compare the walls of two commits. It needs a CUDA device and
+A ...) to compare the walls of two commits. With --general K, each root
+runs only the routes of the general intersector (ops/intersect.nearest_hit:
+csrc/general_nearest.cu where the checkout has it, else its plain torch
+version): SHA-256 of `photon_xla` of mini at the CLI's defaults, of eight
+`photon_xla` batches of mini tiled 4x4 and turned 30 degrees, of the
+general AO of rotated mini, of `debug` of mini and of radiosity of rotated
+mini (a checkout that refuses it records null); the wall seconds of each,
+the median of K runs after the digest's run; and the card's ms per call of
+nearest_hit (events around a loop of calls, chip_smoke.cuda_ms) on the
+second bounce of a photon batch of mini and on the first form-factor
+chunk of rotated mini and of rotated 4x4. It needs a CUDA device and
 imports no JAX.
 """
 import hashlib
@@ -582,7 +593,8 @@ def routes(dev, mini, tiled4, rotated_scene):
     with torch.no_grad():
         target = r(torch.full((len(scene.walls),), 0.9, device=dev),
                    torch.ones(len(em.counts), device=dev)).cpu().numpy()
-    fit = fit_materials(target, em, scene.num_texels, cfg, aa=aa, steps=3,
+    fit = fit_materials(target, None, em, scene.num_texels, cfg, aa=aa,
+                        steps=3,
                         init_albedo=0.6, init_power=0.5)
     out["fit_mini_scatter"] = (fit.losses, fit.albedo, fit.power,
                                fit.lightmap)
@@ -654,8 +666,90 @@ def ao_walls(dev, tiled4, reps, profiled):
     return sha, walls, prof
 
 
+def general_routes(dev, smoke, tiled4, reps):
+    """The --general mode: digests, median walls of `reps` runs and
+    nearest_hit's ms on the general intersector's routes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from flatmatch_tpu_torch.config import DEFAULT_CONFIG, Engine
+    from flatmatch_tpu_torch.debug.raytrace import Camera, render_first_hit
+    from flatmatch_tpu_torch.engines import ao_general, photon
+    from flatmatch_tpu_torch.engines.schedule import emitter_slice
+    from flatmatch_tpu_torch.ops import intersect, threefry
+    from flatmatch_tpu_torch.ops.device_scene import pack_rects
+    from flatmatch_tpu_torch.render import compile_scene, run_engine
+
+    base = DEFAULT_CONFIG
+    ph = base.photon
+    mini = FIXTURES / "mini.png"
+    scene, _ = compile_scene(str(mini), 30.0, base)
+    rscene = smoke.rotated_scene(scene, 30)
+    r4 = smoke.rotated_scene(compile_scene(str(tiled4), 30.0, base)[0], 30)
+    g4 = smoke.general_setup(r4, base, dev)
+    em0 = emitter_slice(g4["em"], 0)
+    U = 4 + 3 * ph.max_depth
+    lay = scene.layout
+    cam = Camera(position=(lay.starting_position[0],
+                           lay.starting_position[1], 1.6))
+    rects_mini = pack_rects(scene.walls, device=dev)
+    rects_rot = pack_rects(rscene.walls, device=dev)
+
+    def xla8():
+        lm = torch.zeros((r4.num_texels, 3), device=dev)
+        for gb in range(8):
+            photon.trace_batch(lm, g4["rects"], em0, threefry.batch_uniforms(
+                ph.seed, gb, ph.photons_per_batch, U, dev),
+                ph.photons_per_batch, ph)
+        return lm
+
+    def radiosity():
+        try:
+            return run_engine(rscene, base.replace(engine=Engine.RADIOSITY),
+                              dev)
+        except NotImplementedError:
+            return None
+
+    jobs = {
+        "photon_xla_mini": lambda: run_engine(
+            scene, base.replace(engine=Engine.PHOTON_XLA), dev),
+        "photon_xla_rotated_4x4_8_batches": xla8,
+        "general_ao_rotated_mini": lambda: ao_general.render_ao(
+            rscene, rects_rot, base.ao),
+        "debug_mini": lambda: render_first_hit(scene, rects_mini, cam),
+        "radiosity_rotated_mini": radiosity,
+    }
+    sha, walls = {}, {}
+    for k, fn in jobs.items():
+        out = fn()
+        if out is None:
+            sha[k] = walls[k] = None
+            continue
+        if isinstance(out, np.ndarray):
+            out = torch.from_numpy(np.ascontiguousarray(out))
+        sha[k] = digest(out)
+        runs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        walls[k] = statistics.median(runs)
+    rays = {"mini_photon_bounce": (rects_mini, *smoke.second_bounce_rays(
+        smoke.general_setup(scene, base, dev), base))}
+    for name, sc in (("rotated_mini", rscene), ("rotated_4x4", r4)):
+        rays[f"{name}_form_factors"] = smoke.form_factor_rays(sc, dev)
+    nearest_ms = {k: smoke.cuda_ms(
+        lambda r=r, s=s_, d=d: intersect.nearest_hit(s, d, r),
+        20 if k.startswith("mini") else 3) for k, (r, s_, d) in rays.items()}
+    return sha, walls, nearest_ms
+
+
 def measure(root: str, names, placements=0, kernels=None,
-            with_routes=False, ao_reps=0) -> dict:
+            with_routes=False, ao_reps=0, general_reps=0) -> dict:
     sys.path.insert(0, root)
     import dataclasses
     import importlib.util
@@ -696,6 +790,11 @@ def measure(root: str, names, placements=0, kernels=None,
         if ao_reps:
             out["sha256"]["routes"], out["ao_walls_s"], out["ao_profile"] = \
                 ao_walls(dev, scenes["4x4"], ao_reps, smoke.profiled)
+            return out
+        if general_reps:
+            (out["sha256"]["general"], out["general_wall_s"],
+             out["nearest_hit_ms"]) = general_routes(
+                 dev, smoke, scenes["4x4"], general_reps)
             return out
         for name in names:
             png = scenes[name]
@@ -774,7 +873,7 @@ def measure(root: str, names, placements=0, kernels=None,
 
 def main(argv):
     opts = {"--scenes": "mini,4x4,13x13", "--placements": "0",
-            "--kernels": "", "--ao-walls": "0"}
+            "--kernels": "", "--ao-walls": "0", "--general": "0"}
     with_routes = False
     while argv and (argv[0] in opts or argv[0] == "--routes"):
         if argv[0] == "--routes":
@@ -786,9 +885,11 @@ def main(argv):
     placements = int(opts["--placements"])
     kernels = [k for k in opts["--kernels"].split(",") if k]
     ao_reps = int(opts["--ao-walls"])
+    general_reps = int(opts["--general"])
     if len(argv) == 2 and argv[0] == "--one":
         print(json.dumps(measure(argv[1], scenes.split(","), placements,
-                                 kernels, with_routes, ao_reps)), flush=True)
+                                 kernels, with_routes, ao_reps,
+                                 general_reps)), flush=True)
         return 0
     variants = {r.rpartition("+")[2] for r in argv if "+" in r}
     if (not argv or not set(scenes.split(",")) <= set(REPS)
@@ -803,7 +904,8 @@ def main(argv):
                 root = variant_root(root, variant, tmp)
             cmd = [sys.executable, __file__, "--scenes", scenes,
                    "--placements", str(placements), "--kernels",
-                   ",".join(kernels), "--ao-walls", str(ao_reps)] + (
+                   ",".join(kernels), "--ao-walls", str(ao_reps),
+                   "--general", str(general_reps)] + (
                        ["--routes"] if with_routes else [])
             res = subprocess.run(cmd + ["--one", root], capture_output=True,
                                  text=True, timeout=900)

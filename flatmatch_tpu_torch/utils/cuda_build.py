@@ -33,9 +33,8 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # C entry points: their argument types (pointers, ints, floats; the threefry
 # keys as uint32 and its element count as int64); each ends with the stream
-# pointer and returns the CUDA error code, but for the three plan queries
-# (fm_fused_splat_plan, fm_fused_splat_i8_plan,
-# fm_trace_deposits_narrow_plan), which launch nothing and take no stream
+# pointer and returns the CUDA error code, but for the plan queries
+# (fm_*_plan), which launch nothing and take no stream
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U32, _I64 = ctypes.c_uint32, ctypes.c_longlong
 ENTRY_POINTS = {
@@ -67,6 +66,8 @@ ENTRY_POINTS = {
     "fm_ao_fused_plan": [_I, _P, _P, _P, _P],
     "fm_threefry_uniform": [_U32, _U32, _I64, _P, _P],
     "fm_threefry_uniform_t": [_U32, _U32, _I, _I, _P, _P],
+    "fm_general_nearest": [_P] * 5 + [_I] * 2 + [_P],
+    "fm_general_nearest_plan": [_I, _P, _P, _P, _P],
 }
 SMEM_LIMIT = 232448   # dynamic shared memory of a block on sm_90
 

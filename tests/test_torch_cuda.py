@@ -1815,3 +1815,143 @@ def test_general_routes_rerun_bit_identical(dev, engine):
     close = np.isclose(a, c, rtol=1e-4, atol=1e-6 * c.max())
     assert close.mean() >= 0.99, f"only {close.mean():.4%} close"
     np.testing.assert_allclose(a.sum(), c.sum(), rtol=1e-3)
+
+
+def _random_rects(n, dev, seed=0):
+    """A general table of n rects of random orientation in a 10 m box,
+    packed as pack_rects packs one (ops/device_scene.Rects)."""
+    from flatmatch_tpu_torch.ops.device_scene import rects_from_numpy
+
+    rs = np.random.RandomState(seed)
+    f32 = np.float32
+
+    def unit(v):
+        return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(f32)
+
+    pos = rs.uniform(0, 10, (n, 3)).astype(f32)
+    nrm = unit(rs.normal(size=(n, 3)))
+    w_unit = unit(np.cross(nrm, rs.normal(size=(n, 3))))
+    h_unit = unit(np.cross(nrm, w_unit))
+    wlen = rs.uniform(0.2, 3, n).astype(f32)
+    hlen = rs.uniform(0.2, 3, n).astype(f32)
+    ones = np.ones(n, np.int32)
+    return rects_from_numpy(
+        dev, pos=pos, wvec=w_unit * wlen[:, None], hvec=h_unit * hlen[:, None],
+        n=nrm, w_unit=w_unit, h_unit=h_unit, wlen=wlen, hlen=hlen,
+        n_off=np.sum(nrm * pos, axis=-1, dtype=f32),
+        base=np.arange(n, dtype=np.int32), wtiles=ones, htiles=ones)
+
+
+def _general_rays(name, dev):
+    """(Rects, origins, directions, expected instance) of a case: the
+    photon engine's first-bounce rays of mini and of rotated mini (emitted
+    from their first emitter), or random rays over 4,000 random rects,
+    past a block's shared memory (3,632 rects)."""
+    from chip_smoke import rotated_scene
+    from flatmatch_tpu_torch.engines import photon
+    from flatmatch_tpu_torch.engines.schedule import emitter_slice
+    from flatmatch_tpu_torch.ops import threefry
+    from flatmatch_tpu_torch.ops.device_scene import pack_rects
+
+    if name == "random4000":
+        rects = _random_rects(4000, dev)
+        rs = np.random.RandomState(1)
+        src = torch.from_numpy(rs.uniform(0, 10, (65536, 3)).astype(
+            np.float32)).to(dev)
+        d = torch.from_numpy(rs.normal(size=(65536, 3)).astype(np.float32))
+        d = (d / d.norm(dim=1, keepdim=True)).to(dev)
+        return rects, src, d, "device"
+    scene, _ = compile_scene(str(FIXTURES / "mini.png"), 30.0, CFG)
+    if name == "rotated_mini":
+        scene = rotated_scene(scene, 30)
+    rects = pack_rects(scene.walls, device=dev)
+    ph = CFG.photon
+    em = pack_emitters(scene, ph.samples_per_area, ph.window_color,
+                       ph.light_color, device=dev)
+    u = threefry.batch_uniforms(ph.seed, 0, 131072, 28, dev)
+    src, d = photon.emit(emitter_slice(em, 0), u, 1e-5)
+    return rects, src.contiguous(), d.contiguous(), "shared"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mini", "rotated_mini", "random4000"])
+def test_general_nearest_kernel_matches_plain_bit_for_bit(dev, name):
+    """csrc/general_nearest.cu against ops/intersect.nearest_hit_plain on
+    the same card: every distance's bits and every hit id equal, in the
+    shared-memory instance and in the device-memory one (tables past 3,632
+    rects), and a rerun gives the same bits."""
+    from flatmatch_tpu_torch.ops import intersect
+
+    rects, src, d, inst = _general_rays(name, dev)
+    n = intersect.general_table(rects).shape[0]
+    assert intersect.general_plan(n, dev)["instance"] == inst
+    before = intersect.nearest_hit.launches
+    dist, hit = intersect.nearest_hit(src, d, rects)
+    dist2, hit2 = intersect.nearest_hit(src, d, rects)
+    torch.cuda.synchronize()
+    assert intersect.nearest_hit.launches == before + 2
+    want_d, want_h = intersect.nearest_hit_plain(src, d, rects)
+    assert torch.isfinite(want_d).float().mean().item() > 0.2
+    assert torch.equal(dist.view(torch.int32), want_d.view(torch.int32))
+    assert torch.equal(hit, want_h)
+    assert torch.equal(dist.view(torch.int32), dist2.view(torch.int32))
+    assert torch.equal(hit, hit2)
+
+
+@pytest.mark.cuda
+def test_general_nearest_wrapper_refuses_and_raises(dev, monkeypatch):
+    """Rays on another device than the table are refused; a CUDA error
+    from the entry point raises, with no launch counted and no fallback."""
+    from flatmatch_tpu_torch.ops import intersect
+    from flatmatch_tpu_torch.utils import cuda_build
+
+    rects, src, d, _ = _general_rays("random4000", dev)
+    with pytest.raises(ValueError):
+        intersect.nearest_hit(src.cpu(), d, rects)
+    cuda_build.load_library()
+    monkeypatch.setattr(cuda_build, "_lib", _FailingLibrary())
+    before = intersect.nearest_hit.launches
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        intersect.nearest_hit(src, d, rects)
+    assert intersect.nearest_hit.launches == before
+
+
+@pytest.mark.cuda
+def test_general_diff_renderer_on_card(dev):
+    """The general differentiable renderer on rotated tiny: at albedo 0.9
+    and power 1 its forward equals the general engine's render_photons
+    bit for bit; its replay gradients equal the autograd oracle's at
+    test_diff.py's bands and repeat bit for bit."""
+    from chip_smoke import rotated_scene
+    from flatmatch_tpu_torch.engines import photon
+    from flatmatch_tpu_torch.ops.device_scene import pack_rects
+
+    ph = dataclasses.replace(CFG.photon, samples_per_area=2000.0,
+                             photons_per_batch=512, seed=5)
+    scene = rotated_scene(compile_scene(str(FIXTURES / "tiny.png"), 30.0,
+                                        CFG)[0], 30)
+    rects = pack_rects(scene.walls, device=dev)
+    em = pack_emitters(scene, ph.samples_per_area, ph.window_color,
+                       ph.light_color, device=dev)
+    T = scene.num_texels
+    r = prender.make_diff_renderer(rects, em, T, ph)
+    oracle = prender.make_autodiff_oracle(rects, em, T, ph)
+    a0 = torch.full((rects.n.shape[0],), np.float32(ph.albedo), device=dev)
+    p0 = torch.ones(len(em.counts), device=dev)
+    with torch.no_grad():
+        assert torch.equal(r(a0, p0),
+                           photon.render_photons(rects, em, T, ph))
+    w = torch.from_numpy(np.random.RandomState(0).rand(T, 3).astype(
+        np.float32)).to(dev)
+
+    def grads(fn):
+        a, p = a0.clone().requires_grad_(), p0.clone().requires_grad_()
+        torch.sum(fn(a, p) * w).backward()
+        return a.grad.cpu().numpy(), p.grad.cpu().numpy()
+
+    ga, gp = grads(r)
+    oa, op = grads(oracle)
+    np.testing.assert_allclose(ga, oa, rtol=1e-4, atol=1e-2)
+    np.testing.assert_allclose(gp, op, rtol=1e-4)
+    ga2, gp2 = grads(r)
+    assert np.array_equal(ga, ga2) and np.array_equal(gp, gp2)

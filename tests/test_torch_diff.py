@@ -334,8 +334,8 @@ def test_fit_three_adam_steps_match_jax(t, renderers):
         updates, state = opt.update(grads, state, params)
         params = optax.apply_updates(params, updates)
     res = pfit.fit_materials(
-        target, t["port_em"], t["scene"].num_texels, CFG, aa=t["port_aa"],
-        steps=3, learning_rate=0.1,
+        target, None, t["port_em"], t["scene"].num_texels, CFG,
+        aa=t["port_aa"], steps=3, learning_rate=0.1,
         params=interop.fit_params_from_jax(a0, p0))
     assert res.losses.dtype == np.float64 and res.losses.shape == (3,)
     assert losses[2] < losses[0]
@@ -354,7 +354,7 @@ def test_fit_power_recovers_exactly(t):
     power_true = torch.tensor([1.4])
     target = r(torch.full((t["n"],), f32(CFG.albedo)), power_true)
     res = pfit.fit_materials(
-        target.numpy(), t["port_em"], t["scene"].num_texels, CFG,
+        target.numpy(), None, t["port_em"], t["scene"].num_texels, CFG,
         aa=t["port_aa"], steps=150, learning_rate=0.05, fit_albedo=False)
     assert res.losses[-1] < 1e-4, res.losses[-1]
     np.testing.assert_allclose(res.power, power_true.numpy(), rtol=0.01)
@@ -370,8 +370,8 @@ def test_fit_materials_joint(t):
     albedo_true = torch.from_numpy((0.6 + 0.3 * rs.rand(t["n"])).astype(f32))
     target = r(albedo_true, torch.tensor([1.3])).numpy()
     res = pfit.fit_materials(
-        target, t["port_em"], t["scene"].num_texels, CFG, aa=t["port_aa"],
-        steps=120, learning_rate=0.1)
+        target, None, t["port_em"], t["scene"].num_texels, CFG,
+        aa=t["port_aa"], steps=120, learning_rate=0.1)
     assert res.losses[-1] < res.losses[0] / 50, (res.losses[0],
                                                  res.losses[-1])
     rel = float(np.mean((res.lightmap - target) ** 2) / np.mean(target ** 2))
@@ -425,9 +425,23 @@ def test_fit_cli_writes_report(tmp_path):
 def test_fit_cli_refuses_what_the_port_does_not_run(flags, tmp_path, capsys):
     """`fit --splat bucket` and `fit --no-device-rng` run
     (tests/test_torch_diff_threefry.py), and so does `fit --profile`
-    (test_fit_cli_runs_what_the_port_runs); multi-host flags, the general
-    engines and checkpoints, which the JAX package's fit ignores, stay
-    refused."""
+    (test_fit_cli_runs_what_the_port_runs); multi-host flags and
+    checkpoints, which the JAX package's fit ignores, stay refused. `fit
+    --engine photon_xla`, once refused, runs: the fit ignores --engine as
+    the JAX package's does, so its report is the one without the flag."""
+    if "photon_xla" in flags:
+        tiles = _render_target(tmp_path)
+        reports = []
+        for extra in ([], flags):
+            out = tmp_path / f"fit{len(extra)}"
+            assert cli.main(["fit", TINY, str(tiles), "30", "--device", "cpu",
+                             "--samples-per-area", str(SPA),
+                             "--photons-per-batch", str(B), "--fit-steps",
+                             "2", "--out", str(out), *extra]) == 0
+            reports.append((out / "fitted.json").read_bytes())
+        assert reports[0] == reports[1]
+        assert "ROADMAP.md" not in capsys.readouterr().err
+        return
     with pytest.raises(SystemExit) as e:
         cli.main(["fit", TINY, str(tmp_path), "--device", "cpu",
                   "--out", str(tmp_path / "o"), *flags])
@@ -460,15 +474,27 @@ def test_fit_cli_runs_what_the_port_runs(flags, tmp_path):
                                     dict(device_rng=False)])
 def test_fit_library_refuses_what_the_port_does_not_run(t, change):
     """The stream and threefry tiers build (tests/test_torch_diff_threefry.py
-    runs them); a scene without an axis-aligned table (aa=None, which needs
-    the general differentiable renderer) is still refused on every tier."""
+    runs them); a fit without an axis-aligned table (aa=None), once
+    refused, now runs the general differentiable renderer on the rect
+    table under every tier's config (it draws threefry and splats f32,
+    whatever the tier, as the JAX package's does), fitting albedo [N_pad]
+    (tests/test_torch_diff_general.py holds it against the JAX package)."""
+    from flatmatch_tpu_torch.ops.device_scene import pack_rects
+
     cfg = dataclasses.replace(CFG, **change)
     r = prender.make_diff_renderer_wide(t["port_em"], t["scene"].num_texels,
                                         cfg, t["port_aa"])
     assert r.stream == (cfg.splat == "scatter") and not r.device_rng
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pfit.fit_materials(np.zeros((t["scene"].num_texels, 3), f32),
-                           t["port_em"], t["scene"].num_texels, cfg, aa=None)
+    rects = pack_rects(t["scene"].walls)
+    T = t["scene"].num_texels
+    with torch.no_grad():
+        target = prender.make_diff_renderer(rects, t["port_em"], T, cfg)(
+            torch.full((rects.n.shape[0],), 0.8), torch.tensor([1.2]))
+    res = pfit.fit_materials(target.numpy(), rects, t["port_em"], T, cfg,
+                             aa=None, steps=2, init_albedo=0.6)
+    assert res.albedo.shape == (rects.n.shape[0],)
+    assert res.power.shape == (1,) and res.lightmap.shape == (T, 3)
+    assert np.isfinite(res.losses).all() and res.losses[1] < res.losses[0]
 
 
 def test_diff_wrappers_check_inputs(t):

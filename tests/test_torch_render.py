@@ -8,8 +8,9 @@ exposure_scale. Tolerance: total energy within 1e-3 and >= 99% of texels
 within rtol 1e-5; the draws and integer sums are exact, and only a
 last-ulp sin/cos/rsqrt difference between XLA and torch can split a path.
 The CLI is checked for its artifacts and for refusing what the port does
-not run (tests/test_torch_stream.py checks the stream tiers it runs,
-tests/test_torch_inkernel.py the other in-kernel routes).
+not run, the multi-host flags (tests/test_torch_stream.py checks the
+stream tiers it runs, tests/test_torch_inkernel.py the other in-kernel
+routes, tests/test_torch_oracle.py the NumPy oracle engine).
 """
 import dataclasses
 import json
@@ -113,9 +114,20 @@ def test_supersample_render(tmp_path):
     ["--num-processes", "2"],
 ])
 def test_cli_refuses_what_the_slice_does_not_run(flags, tmp_path, capsys):
+    """The multi-host flags stay refused, naming ROADMAP.md, before any
+    artifact is written; `--engine photon_oracle`, once refused, renders
+    (the NumPy oracle on the general engine's draws,
+    tests/test_torch_oracle.py) and writes its tiles."""
+    argv = ["render", TINY, "30", "--device", "cpu", "--out", str(tmp_path),
+            *flags]
+    if "photon_oracle" in flags:
+        assert cli.main([*argv, "--samples-per-area", str(SPA),
+                         "--photons-per-batch", "1024"]) == 0
+        assert len(list((tmp_path / "tiles").glob("tile_*.png"))) == 13
+        assert "ROADMAP.md" not in capsys.readouterr().err
+        return
     with pytest.raises(SystemExit) as e:
-        cli.main(["render", TINY, "30", "--device", "cpu",
-                  "--out", str(tmp_path), *flags])
+        cli.main(argv)
     assert e.value.code == 2
     assert "ROADMAP.md" in capsys.readouterr().err
     assert not (tmp_path / "geometry.json").exists()
@@ -205,17 +217,39 @@ def test_preview_is_ignored_where_it_cannot_run(kw, warning, tmp_path,
     dict(engine=Engine.RADIOSITY, no_table=True),
 ])
 def test_library_refuses_what_the_slice_does_not_run(change, monkeypatch):
-    """The NumPy oracle engine stays unported, whatever the photon route,
-    and so does radiosity of a scene without an axis-aligned table (the
-    general form factors); the general photon engines run
-    (tests/test_torch_general.py)."""
+    """What the slice once refused now runs through run_engine: the NumPy
+    oracle engine, whatever the photon route (it ignores --splat and
+    --device-rng, as the JAX package's does: the same arena each time), and
+    radiosity of a scene without an axis-aligned table, through the general
+    form factors (tests/test_torch_radiosity_general.py holds both against
+    the JAX package)."""
+    from flatmatch_tpu_torch.engines import photon_oracle_driver, radiosity
+    from flatmatch_tpu_torch.ops.device_scene import (
+        exposure_scale as p_exposure,
+    )
+
     cfg = _cfg(DEFAULT_CONFIG).replace(engine=change["engine"])
     cfg = cfg.replace(photon=dataclasses.replace(cfg.photon,
-                                                 **change.get("photon", {})))
+                                                 **change.get("photon", {})),
+                      radiosity=dataclasses.replace(cfg.radiosity,
+                                                    rays_per_texel=64))
     scene, _ = compile_scene(TINY, 30.0, cfg)
     if change.get("no_table"):
         monkeypatch.setattr(
             "flatmatch_tpu_torch.engines.radiosity.pack_aa",
             lambda rects, device="cpu": None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_engine(scene, cfg, device="cpu")
+        calls = []
+        real = radiosity.form_factor_chunk
+        monkeypatch.setattr(radiosity, "form_factor_chunk",
+                            lambda *a: calls.append(1) or real(*a))
+    out = run_engine(scene, cfg, device="cpu")
+    assert out.shape == (scene.num_texels, 3)
+    assert np.isfinite(out).all() and out.sum() > 0
+    if change.get("no_table"):
+        assert calls        # the general form factors ran
+        return
+    raw = photon_oracle_driver.render_photons_np(
+        scene, dataclasses.replace(cfg.photon, splat="inkernel_i8",
+                                   device_rng=True), "cpu")
+    scale = p_exposure(scene, SPA, cfg.photon.exposure)
+    assert np.array_equal(out, raw * scale[:, None])

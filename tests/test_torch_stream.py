@@ -45,7 +45,7 @@ from flatmatch_tpu_torch.diff import render as pdiff
 from flatmatch_tpu_torch.engines import photon_wide as pw
 from flatmatch_tpu_torch.ops import splat as psplat, threefry
 from flatmatch_tpu_torch.ops.aa_scene import pack_aa
-from flatmatch_tpu_torch.ops.device_scene import pack_emitters
+from flatmatch_tpu_torch.ops.device_scene import pack_emitters, pack_rects
 from flatmatch_tpu_torch.render import compile_scene, run_engine
 from tests.conftest import FIXTURES
 
@@ -442,7 +442,8 @@ def test_library_refuses_what_stays_unported(photon, monkeypatch):
     renders through the narrow kernel's route under each of these photon
     settings (the general route ignores --splat and --device-rng, as the
     JAX package's does), with a finite, non-zero arena; the fit of such a
-    scene (the general differentiable renderer) is still refused."""
+    scene, once refused, now runs the general differentiable renderer
+    (tests/test_torch_diff_general.py)."""
     cfg = _port_cfg(photons_per_batch=1024, **photon)
     scene, _ = compile_scene(TINY, 30.0, cfg)
     monkeypatch.setattr("flatmatch_tpu_torch.ops.aa_scene.pack_aa",
@@ -457,12 +458,13 @@ def test_library_refuses_what_stays_unported(photon, monkeypatch):
     assert calls == [1]
     assert np.isfinite(out).all() and out.sum() > 0
     pfit = importlib.import_module("flatmatch_tpu_torch.diff.fit")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ph = cfg.photon
-        pfit.fit_materials(np.zeros((scene.num_texels, 3), f32),
-                           pack_emitters(scene, 3000.0, ph.window_color,
-                                         ph.light_color),
-                           scene.num_texels, ph, aa=None)
+    ph = cfg.photon
+    res = pfit.fit_materials(np.ones((scene.num_texels, 3), f32),
+                             pack_rects(scene.walls),
+                             pack_emitters(scene, 3000.0, ph.window_color,
+                                           ph.light_color),
+                             scene.num_texels, ph, aa=None, steps=1)
+    assert res.albedo.shape == (128,) and np.isfinite(res.losses).all()
 
 
 @pytest.mark.parametrize("photon", [
@@ -472,8 +474,9 @@ def test_library_refuses_what_stays_unported(photon, monkeypatch):
 ])
 def test_diff_renderer_refuses_the_stream_tiers(photon):
     """The diff renderer runs the stream tiers and the threefry draws
-    (tests/test_torch_diff_threefry.py); what it still refuses is a scene
-    without an axis-aligned table, on every tier."""
+    (tests/test_torch_diff_threefry.py); a scene without an axis-aligned
+    table, once refused on every tier, now fits through the general
+    differentiable renderer under each tier's config."""
     from flatmatch_tpu_torch.diff.fit import fit_materials
 
     cfg = dataclasses.replace(DEFAULT_CONFIG.photon, **photon)
@@ -483,9 +486,11 @@ def test_diff_renderer_refuses_the_stream_tiers(photon):
                                       pack_aa(scene.walls))
     assert r.stream == (cfg.splat in pdiff.STREAM_TIERS)
     assert not r.device_rng
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fit_materials(np.zeros((scene.num_texels, 3), f32), em,
-                      scene.num_texels, cfg, aa=None)
+    res = fit_materials(np.ones((scene.num_texels, 3), f32),
+                        pack_rects(scene.walls), em, scene.num_texels,
+                        dataclasses.replace(cfg, photons_per_batch=1024),
+                        aa=None, steps=1)
+    assert res.albedo.shape == (128,) and np.isfinite(res.losses).all()
 
 
 @pytest.mark.parametrize("argv", [
