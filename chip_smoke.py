@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from flatmatch_tpu_torch/csrc and drives the port's
-fifteen groups of paths on the card:
+sixteen groups of paths on the card:
 - the render: the production kernel against its plain PyTorch version,
   `tests/fixtures/mini.png` through the port's CLI at its defaults, the
   physics against the reference C engine's golden lightmap, and a 4x4
@@ -131,7 +131,20 @@ fifteen groups of paths on the card:
   its gradients the CPU run's (57); with more than one card visible,
   one shard a card against as many shards of cuda:0 bit for bit at the
   three tiers and over 10 fit steps, with a 4x4 step on every card
-  (every_card_fit).
+  (every_card_fit);
+- the product's scene (example.png's 172 walls and 113,964 texels), built
+  from tests/fixtures/example_rects.txt by flatmatch_tpu_torch/tools/
+  flagship.py without the PNG: every kernel it launches against its plain
+  version at its tables (58); the port's counterparts of the JAX repo's
+  on-chip gates against the reference C engine's dumps, each with its
+  launches: the photon render at the CLI's defaults at 300,000 samples
+  per m^2 (59), the 7-bit splats against `fused` at 2^24 photons (60),
+  the fused and chunked AO of tiny, mini and the flagship and the general
+  AO of five flagship walls (61), radiosity at 10,000 and 2,000 rays with
+  peak memory (62); and the product render at the CLI's defaults with its
+  172 tiles and geometry.json, against the reference dump in distribution
+  (63). The kernels line gives each row's device ms, launches and bound
+  on the flagship under "flagship".
 The kernels line's times, and phases 12's, 17's, 30's and 37-39's
 kernel times, are device times
 (device_ms:
@@ -542,15 +555,20 @@ def ray_bound(kernel, n_rects, rays, bytes_per_ray, extra_bytes=0):
 
 def batch_setup(png, cfg, dev):
     """Scene table, emitters and batch-0 inputs of a layout at cfg."""
+    from flatmatch_tpu_torch.render import compile_scene
+
+    return scene_setup(compile_scene(str(png), 30.0, cfg)[0], cfg, dev, png)
+
+
+def scene_setup(scene, cfg, dev, what="scene"):
+    """batch_setup of a compiled scene."""
     from flatmatch_tpu_torch.engines import photon_wide as pw
     from flatmatch_tpu_torch.ops import rng
     from flatmatch_tpu_torch.ops.aa_scene import pack_aa
     from flatmatch_tpu_torch.ops.device_scene import pack_emitters
-    from flatmatch_tpu_torch.render import compile_scene
 
-    scene, _ = compile_scene(str(png), 30.0, cfg)
     aa = pack_aa(scene.walls, device=dev)
-    check(aa is not None, f"{png}: scene not axis-aligned")
+    check(aa is not None, f"{what}: scene not axis-aligned")
     aa_c, total_c, expand = pw.compact_aa(aa, scene.num_texels)
     ph = cfg.photon
     em = pack_emitters(scene, ph.samples_per_area, ph.window_color,
@@ -3083,10 +3101,9 @@ def fold_past_the_cap_phase(dev, cfg, make_layout):
 
 def cli_photon_cfg():
     """The CLI's photon defaults: device RNG on, in-kernel 7-bit splat."""
-    from flatmatch_tpu_torch.config import DEFAULT_CONFIG
+    from flatmatch_tpu_torch.tools.flagship import cli_config
 
-    return DEFAULT_CONFIG.replace(photon=dataclasses.replace(
-        DEFAULT_CONFIG.photon, device_rng=True, splat="inkernel_i8"))
+    return cli_config()
 
 
 def rotated_mini_texels(dev, checkpoint_path=None):
@@ -4651,6 +4668,274 @@ def every_card_fit(dev, make_layout):
     return seconds
 
 
+# --------------------------------------------------------------------------
+# the product's scene (58-63)
+# --------------------------------------------------------------------------
+# rays and texels of the flagship compared with the plain versions of rows
+# 12-14 (the plain AO of all 85,056 texels takes minutes on the card)
+FLAGSHIP_CUT = (1 << 18, 1024)
+# the kernels each flagship gate launches, and nothing else
+FLAGSHIP_GATE_KERNELS = {
+    "production": ("trace_splat_wide_rng_i8",),
+    "i8": ("trace_deposits_wide_rng", "fused_splat", "fused_splat_i8",
+           "fused_splat_i8_add", "trace_splat_wide_rng_i8"),
+    "ao": ("ao_fused", "nearest_distances", "general_nearest"),
+    "radiosity": ("threefry_uniform", "aa_nearest"),
+    "render": ("trace_splat_wide_rng_i8",),
+}
+
+
+def general_ao_rays(scene, wi, dev, cfg):
+    """The rays of the general AO's first chunk of wall `wi`, as
+    engines/ao_general.render_ao casts them."""
+    import torch
+
+    from flatmatch_tpu_torch.engines import ao, ao_general
+
+    wall = scene.walls[wi]
+    return ao_general.chunk_rays(
+        torch.from_numpy(ao.tile_centers(wall)[:cfg.texels_per_chunk]
+                         ).to(dev),
+        torch.from_numpy(ao.wall_directions(wall.n, cfg.geosphere_level)
+                         ).to(dev))
+
+
+def flagship_kernels_phase(dev, cfg, scene):
+    """58. every kernel the flagship launches against its plain version on
+    the card at the flagship's tables (172 walls in three normal-axis
+    groups, 85,056 compact texels): one CLI batch each of row 1 (phase
+    2's bands) and row 3 (phase 18's: every row equal), rows 15 and 16 on
+    that batch's stream and row 15's adding entry (bit for bit), the
+    threefry draw of radiosity's first chunk of wall 0 at the production
+    budget (bit for bit), rows 12-14 on kernels_vs_plain's bands (the AO
+    compared on its first texels, the ray kernels on their first rays,
+    timed whole), and the general intersector on the general AO's first
+    chunk of wall AO_WALLS[-1] (bit for bit); each with its device ms and
+    host µs a call, the plain version's ms and the bound."""
+    import numpy as np
+    import torch
+
+    from flatmatch_tpu_torch.engines import photon_wide as pw
+    from flatmatch_tpu_torch.ops import splat as sp, threefry
+    from flatmatch_tpu_torch.ops.device_scene import pack_rects
+    from flatmatch_tpu_torch.scene.rectangle import num_tiles
+    from flatmatch_tpu_torch.tools import flagship
+
+    s = scene_setup(scene, cfg, dev, "flagship")
+    ph = cfg.photon
+    B, D = ph.photons_per_batch, ph.max_depth
+    T = s["total_c"]
+    f, gc = s["aa_c"].fields, s["aa_c"].group_counts
+    rows = {}
+
+    got = kernel_batch(s, cfg, B)
+    want = plain_batch(s, cfg, B)
+    sync()
+    eq = (got == want).float().mean().item()
+    e_got, e_want = got.sum().item(), want.sum().item()
+    check(e_want > 0, "flagship row 1: the plain version deposited nothing")
+    check(abs(e_got - e_want) <= 1e-6 * abs(e_want),
+          f"flagship row 1: energy {e_got} vs plain {e_want}")
+    check(eq >= 0.999, f"flagship row 1: only {eq:.6f} of cells equal")
+    acc = torch.empty_like(got)
+    ms, host_us = device_ms(lambda: kernel_batch(s, cfg, B, out=acc), 20)
+    bounces = traced_bounces(s, cfg, B)
+    bnd = trace_bound(s, bounces, B, "trace_splat_wide_rng_i8")
+    rows["trace_splat_wide_rng_i8"] = dict(
+        cells=got.numel(), equal_share=eq,
+        max_abs_err=(got.float() - want.float()).abs().max().item()
+        * float(pw.splat_color_scale(ph)),
+        traced_bounces_per_photon=bounces / B, ms=ms, host_us=host_us,
+        plain_ms=cuda_ms(lambda: plain_batch(s, cfg, B), 3),
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+
+    phf = dataclasses.replace(ph, splat="fused")
+    block = pw.stream_block(B)
+
+    def row3():
+        return pw.trace_deposits_wide_rng(f, gc, s["ev"], s["seed"], B, B,
+                                          phf, block)
+
+    def row3_plain():
+        return pw.stream_rows(*pw.trace_deposits_rng_plain(
+            f, gc, s["ev"], s["seed"], B, B, phf)[:2], block)
+
+    a, b = row3(), row3()
+    want = row3_plain()
+    sync()
+    ids_eq = (a[0] == want[0]).float().mean().item()
+    col_eq = (a[1] == want[1]).all(-1).float().mean().item()
+    check(ids_eq == 1.0 and col_eq == 1.0, f"flagship row 3: ids equal on "
+          f"{ids_eq}, colors on {col_eq} of rows")
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          "flagship row 3: two runs differ")
+    bounces3 = stream_bounces(want[1], B, D, block)
+    bnd = trace_bound(s, bounces3, B, "trace_deposits_wide_rng", D)
+    ms, host_us = device_ms(row3, 20)
+    rows["trace_deposits_wide_rng"] = dict(
+        rows=a[0].numel(), ids_equal=ids_eq, colors_equal=col_eq,
+        max_abs_err=(a[1] - want[1]).abs().max().item(),
+        traced_bounces_per_photon=bounces3 / B, ms=ms, host_us=host_us,
+        plain_ms=cuda_ms(row3_plain, 3), bound_ms=bnd[0], bound_by=bnd[1],
+        library_ms=None)
+
+    idx, col = a
+    R = idx.shape[0]
+    scale, total = sp.splat_color_scale(phf), sp.stream_bound(phf)
+    lm0 = torch.from_numpy(np.random.RandomState(58).rand(T, 3).astype(
+        np.float32)).to(dev)
+    splats = {
+        "fused_splat_i8": (
+            lambda: sp.fused_splat_i8(idx, col, T, scale),
+            lambda: sp.fused_splat_i8_plain(idx, col, T, scale)),
+        "fused_splat_i8_add": (
+            lambda: sp.fused_splat_i8_add(lm0.clone(), idx, col, scale),
+            lambda: lm0 + sp.fused_splat_i8_plain(idx, col, T, scale)),
+        "fused_splat": (
+            lambda: sp.fused_splat(idx, col, T, total),
+            lambda: sp.fused_splat_fixed_plain(idx, col, T, total)),
+    }
+    for name, (run, exact) in splats.items():
+        a, b = run(), run()
+        want = exact()
+        sync()
+        check(want.sum().item() > 0, f"flagship {name}: plain is empty")
+        check(torch.equal(a, b), f"flagship {name}: two runs differ")
+        check(torch.equal(a, want), f"flagship {name}: differs from its "
+              f"exact plain version")
+        ms, host_us = device_ms(run, 20)
+        bnd = splat_bound(R, T, name)
+        rows[name] = dict(rows=R, texels=T, equal_to_plain=True,
+                          max_abs_err=0.0, ms=ms, host_us=host_us,
+                          plain_ms=cuda_ms(exact, 3), bound_ms=bnd[0],
+                          bound_by=bnd[1], library_ms=None)
+    rounded = col.to(torch.bfloat16).to(torch.float32)
+    idx64 = idx.to(torch.int64)
+    buf = torch.zeros((T, 3), dtype=torch.float32, device=dev)
+    rows["fused_splat"]["library_ms"] = kernel_ms(
+        lambda: buf.index_add_(0, idx64, rounded), 20)
+
+    rays = flagship.RADIOSITY_RAYS[0]
+    C = min(int(cfg.radiosity.texels_per_chunk), num_tiles(scene.walls[0]))
+    rkey = threefry.fold_in(threefry.fold_in(threefry.prng_key(
+        flagship.RADIOSITY_SEED), 0), 0)
+    rshape = (C, rays, 2)
+    got = threefry.uniform(rkey, rshape, dev)
+    exact = threefry.uniform_plain(rkey, rshape, dev)
+    sync()
+    check(torch.equal(got, exact), "flagship threefry: radiosity's first "
+          "chunk differs from its plain version")
+    ms, host_us = device_ms(lambda: threefry.uniform(rkey, rshape, dev), 20)
+    bnd = threefry_bound(got.numel())
+    rows["threefry_uniform"] = dict(
+        elements=got.numel(), equal_to_plain=True, max_abs_err=0.0, ms=ms,
+        host_us=host_us,
+        plain_ms=cuda_ms(lambda: threefry.uniform_plain(rkey, rshape, dev),
+                         3), bound_ms=bnd[0], bound_by=bnd[1],
+        library_ms=None)
+
+    near = kernels_vs_plain(nearest_inputs(scene, dev, cfg), 10, 1,
+                            *FLAGSHIP_CUT)
+    for name, r in near.items():
+        r["plain_ms"] = r.pop("plain_ms_compared", r.get("plain_ms"))
+        rows[name] = dict(r, library_ms=None)
+
+    src, d = general_ao_rays(scene, flagship.AO_WALLS[-1], dev, cfg.ao)
+    gen = general_nearest_vs_plain(pack_rects(scene.walls, device=dev), src,
+                                   d)
+    rows["general_nearest"] = dict(gen, max_abs_err=0.0, library_ms=None)
+    say("flagship_kernels_vs_plain", scene="flagship", batch=B,
+        rects=f.shape[1], group_counts=list(gc), compact_texels=T,
+        **rows)
+    return rows
+
+
+def flagship_batches(scene, spa, B):
+    """Batches of the photon render of `scene` at `spa` in batches of B."""
+    from flatmatch_tpu_torch.ops.device_scene import pack_emitters
+
+    counts = pack_emitters(scene, spa, (18, 18, 18), (16, 16, 18)).counts
+    return sum(-(-int(n) // B) for n in counts if n > 0)
+
+
+def flagship_phases(dev, results):
+    """58-63: the product's scene, loaded from tests/fixtures/
+    example_rects.txt (tools/flagship.py, no PNG): every kernel it
+    launches against its plain version at its tables (58); the port's
+    counterparts of the JAX repo's on-chip gates against the reference
+    C engine's dumps, each with its launches: the photon render at the
+    CLI's defaults at 300,000 samples per m^2 (59), the 7-bit splats
+    against `fused` at 2^24 photons (60), the axis-aligned AO of tiny,
+    mini and the flagship fused and chunked and the general AO of five
+    flagship walls (61), radiosity at 10,000 and 2,000 rays with peak
+    memory (62); and the product render, run_engine at the CLI's
+    defaults (1e8 samples per m^2) and its export, 172 tiles and
+    geometry.json byte for byte, in distribution against the dump (63).
+    Adds the flagship's device ms, launches and bound of each row to
+    `results` under "flagship"."""
+    from flatmatch_tpu_torch.tools import flagship
+
+    scene = flagship.flagship_scene()
+    cfg = flagship.cli_config()
+    B = cfg.photon.photons_per_batch
+    rows = flagship_kernels_phase(dev, cfg, scene)
+    launched = {}
+
+    def gate(phase, name, run, **extra):
+        """One gate with the counts reset just before and read just
+        after; fails the smoke when the gate fails, or when it launches
+        another kernel than FLAGSHIP_GATE_KERNELS[name], or not each."""
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        res = run()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in read_launches().items() if v}
+        check(res["pass"], f"flagship {name} gate failed: {json.dumps(res)}")
+        check(set(launches) == set(FLAGSHIP_GATE_KERNELS[name]),
+              f"flagship {name}: launches {launches}, want each of "
+              f"{FLAGSHIP_GATE_KERNELS[name]}")
+        for k, v in launches.items():
+            launched[k] = launched.get(k, 0) + v
+        say(phase, scene="flagship", launches=launches, gate_wall_s=wall,
+            **extra, **res)
+        return res, launches
+
+    want = flagship_batches(scene, flagship.PRODUCTION_SPA, B)
+    _, n = gate("flagship_production", "production",
+                lambda: flagship.production(dev), batches=want)
+    check(n["trace_splat_wide_rng_i8"] == want,
+          f"flagship production: {n} launches, {want} batches")
+    gate("flagship_i8", "i8", lambda: flagship.i8(dev))
+    gate("flagship_ao", "ao", lambda: flagship.ao(dev))
+    gate("flagship_radiosity", "radiosity",
+         lambda: flagship.radiosity(dev))
+
+    want = flagship_batches(scene, cfg.photon.samples_per_area, B)
+    row1 = rows["trace_splat_wide_rng_i8"]
+    with tempfile.TemporaryDirectory() as tmp:
+        res, n = gate(
+            "flagship_render", "render",
+            lambda: flagship.product_render(dev, tmp), batches=want,
+            kernel_ms_per_batch=row1["ms"], bound_ms_per_batch=row1[
+                "bound_ms"], card=card_line())
+    launches = n["trace_splat_wide_rng_i8"]
+    check(launches == want, f"flagship render: {launches} launches, {want} "
+          f"batches")
+    say("flagship_render_time", launches=launches, engine_s=res["engine_s"],
+        kernel_s=launches * row1["ms"] / 1e3,
+        kernel_share_of_engine=launches * row1["ms"] / 1e3
+        / res["engine_s"], bound_s=launches * row1["bound_ms"] / 1e3)
+    for name, r in rows.items():
+        results.setdefault(name, {})["flagship"] = dict(
+            ms=r["ms"], launches=launched.get(name, 0),
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            plain_ms=r["plain_ms"], max_abs_err=r["max_abs_err"])
+    results["trace_splat_wide_rng_i8"]["flagship"]["render_launches"] = \
+        launches
+
+
 def main():
     import torch
 
@@ -4995,6 +5280,7 @@ def main():
     general_intersector_phases(dev, results, make_layout)
     sharded_phases(dev, make_layout)
     sharded_fit_phases(dev, make_layout)
+    flagship_phases(dev, results)
 
     print(json.dumps({"kernels": [dict(KERNELS[k], **results[k])
                                   for k in KERNELS]}))

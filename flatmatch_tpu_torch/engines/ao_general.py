@@ -32,14 +32,21 @@ from .ao import NUDGE, tile_centers, wall_directions
 f32 = np.float32
 
 
+def chunk_rays(centers, dirs):
+    """The rays of a [C] texel chunk over its [K] directions: origins
+    NUDGE along each direction from each center, and the directions,
+    [C * K, 3] each, texel-major."""
+    C, K = centers.shape[0], dirs.shape[0]
+    src = (centers[:, None, :] + dirs[None, :, :] * NUDGE).reshape(C * K, 3)
+    return src, dirs[None, :, :].expand(C, K, 3).reshape(C * K, 3)
+
+
 def ao_chunk(rects: Rects, centers, dirs, fac, sky_distance: float,
              normalization: float) -> torch.Tensor:
     """AO of a [C] texel chunk over its [K] directions (photonmap.c:
     441-475): [C] f32."""
     C, K = centers.shape[0], dirs.shape[0]
-    src = (centers[:, None, :] + dirs[None, :, :] * NUDGE).reshape(C * K, 3)
-    d = dirs[None, :, :].expand(C, K, 3).reshape(C * K, 3)
-    dist, _ = nearest_hit(src, d, rects)
+    dist, _ = nearest_hit(*chunk_rays(centers, dirs), rects)
     dist = torch.where(torch.isfinite(dist), dist,
                        torch.full_like(dist, sky_distance)).reshape(C, K)
     dist_sum = torch.sum(dist * fac[None, :], dim=-1)

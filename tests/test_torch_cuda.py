@@ -1974,3 +1974,17 @@ def test_fixed_point_scale_on_a_card_that_is_not_current(dev):
     torch.cuda.synchronize(1)
     assert got.device == torch.device("cuda:1")
     assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", ["production", "i8", "ao", "radiosity",
+                                  "render"])
+def test_flagship_gate_on_the_card(dev, gate, tmp_path):
+    """The product's scene, built from tests/fixtures/example_rects.txt,
+    through each gate of tools/flagship.py against the reference C
+    engine's dumps (the render gate: 172 tiles and geometry.json too)."""
+    from flatmatch_tpu_torch.tools import flagship
+
+    kw = dict(out_dir=str(tmp_path)) if gate == "render" else {}
+    res = flagship.GATES[gate](dev, **kw)
+    assert res["pass"], res
