@@ -1,0 +1,7 @@
+"""export_s: mean seconds of a request's export span (benchmark/loop.py
+`request`), over the window's requests that ran without the profiler."""
+
+
+def read(run):
+    spans = [s["export"] for s in run["spans"]]
+    return sum(spans) / len(spans) if spans else None
