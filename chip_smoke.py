@@ -96,7 +96,8 @@ sixteen groups of paths on the card:
   (its offer splices the fixtures verbatim) and of the 4x4 tiling, whose
   tree the REST server serves from a thread and every route reads back
   (phase 42); `debug` of mini on the card against the CPU, and `render
-  --profile` of mini, whose trace names the row-1 kernel (phase 43);
+  --profile` of mini, whose trace names the row-1 kernel and the
+  program's spans of a render (phase 43);
 - the general intersector (csrc/general_nearest.cu) against its plain
   version, radiosity of rotated mini, the general diff renderer and
   `--engine photon_oracle` (phases 44-47);
@@ -891,10 +892,9 @@ def radiosity_bands(scene, out, rays):
 
 def profiled(fn):
     """Run fn() once under torch.profiler (CUDA activity): its wall
-    seconds, the device milliseconds of its kernels in groups (the port's
-    kernels by name, PyTorch's own kernels, copies and fills) and the
-    share of the wall the device was busy. The groups are None when the
-    profiler records no device time."""
+    seconds and the device milliseconds of its kernels in groups (the
+    port's kernels by name, PyTorch's own kernels, copies and fills). The
+    groups are None when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
@@ -929,11 +929,9 @@ def profiled(fn):
         else:
             group = "torch kernels"
         groups[group] = groups.get(group, 0.0) + us / 1e3
-    busy = sum(groups.values())
-    if busy <= 0:
-        return dict(wall_s=wall, device_ms=None, busy_share=None)
-    return dict(wall_s=wall, device_ms=groups,
-                busy_share=busy / (wall * 1e3))
+    if sum(groups.values()) <= 0:
+        return dict(wall_s=wall, device_ms=None)
+    return dict(wall_s=wall, device_ms=groups)
 
 
 def cli_render(args, tmp, want_tiles):
@@ -3168,6 +3166,13 @@ def timed(fn):
     return time.perf_counter() - t0, out
 
 
+# the program's spans (flatmatch_tpu_torch/utils/spans.py) of a photon
+# `render` through the CLI
+RENDER_SPANS = {"scene.build", "engine.run", "engine.tables",
+                "photon.schedule", "engine.readback", "export.geometry",
+                "export.tiles", "export.tonemap", "export.encode"}
+
+
 def publishing_phases(dev, make_layout):
     """Phases 40-43: checkpoint and resume, previews, package and serve,
     debug and the profiler, through the CLI at its defaults."""
@@ -3435,10 +3440,15 @@ def publishing_phases(dev, make_layout):
         check(launches > 0 and kern,
               f"the trace names trace_splat_kernel {len(kern)} times, "
               f"{launches} launches")
+        spans = [e["name"] for e in events if e.get("ph") == "X"
+                 and e.get("cat") == "user_annotation"]
+        missing = RENDER_SPANS - set(spans)
+        check(not missing, f"the trace lacks the spans {sorted(missing)}")
         seconds["43"] = time.perf_counter() - t43
         say("debug_and_profile", debug_wall_s=w_dbg,
             debug_cpu_wall_s=w_dbg_cpu, pixels_equal_share=share,
             profiled_render_wall_s=w_prof, straight_render_wall_s=w_plain,
+            spans={n: spans.count(n) for n in sorted(set(spans))},
             trace_splat_kernel_events=len(kern), launches=launches,
             trace_splat_kernel_device_ms=sum(e.get("dur", 0) for e in kern)
             / 1e3, seconds=seconds["43"])

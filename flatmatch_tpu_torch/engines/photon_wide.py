@@ -66,6 +66,7 @@ from ..ops.splat import (
     splat_stream, stream_bound,
 )
 from ..utils.cuda_build import SMEM_LIMIT, launch
+from ..utils.spans import span
 
 THREADS = 256                      # photons per CUDA block
 WARPS = THREADS // 32
@@ -1247,7 +1248,8 @@ def render_photons(emitters: Emitters, num_texels: int, cfg: PhotonConfig,
     B = int(cfg.photons_per_batch)
     if cfg.splat in ("inkernel_i8", "fused_i8"):
         check_i8_accumulator(cfg, B)
-    aa_c, total_c, expand = compact_aa(aa, num_texels)
+    with span("engine.tables"):
+        aa_c, total_c, expand = compact_aa(aa, num_texels)
     seg_cb = None
     if on_segment is not None:
         def seg_cb(lm, done, total):
@@ -1255,4 +1257,5 @@ def render_photons(emitters: Emitters, num_texels: int, cfg: PhotonConfig,
 
     compact_lm = render_all_wide(aa_c.fields, aa_c.group_counts, emitters,
                                  cfg, total_c, checkpoint_path, seg_cb)
-    return expand(compact_lm)
+    with span("engine.readback"):
+        return expand(compact_lm)

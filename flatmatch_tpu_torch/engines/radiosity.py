@@ -51,6 +51,7 @@ from ..ops.sampling import TWO_PI_REF, build_base
 from ..ops.tile import texel_index
 from ..scene.geometry import Scene
 from ..scene.rectangle import Rect, num_mipmap_texels, num_tiles
+from ..utils.spans import span
 from .ao import NUDGE, tile_centers
 
 f32 = np.float32
@@ -124,31 +125,32 @@ def form_factors(scene: Scene, table, cfg: RadiosityConfig, key=None
     package pads it and discards the padded rows. Element i of a threefry
     draw depends only on the key and i, so drawing the real rows alone
     gives the same rays, and the padding is not traced here."""
-    rays = int(cfg.rays_per_texel)
-    chunk = int(cfg.texels_per_chunk)
-    general = isinstance(table, Rects)
-    dev = table.n.device if general else table.fields.device
-    rows = sum(num_tiles(w) for w in scene.walls)
-    ids = torch.full((rows, rays), -1, dtype=torch.int32, device=dev)
-    if key is None:
-        key = threefry.prng_key(cfg.seed)
-    row0 = 0
-    for wi, wall in enumerate(scene.walls):
-        centers = torch.from_numpy(tile_centers(wall)).to(dev)
-        normal = torch.from_numpy(np.asarray(wall.n, f32)).to(dev)
-        T = num_tiles(wall)
-        for ci, s in enumerate(range(0, T, chunk)):
-            c = centers[s:s + chunk]
-            k = threefry.fold_in(threefry.fold_in(key, wi), ci)
-            if general:
-                tex = form_factor_chunk(table, c, normal, k, rays)
-            else:
-                src, direc = ff_rays(c, normal, k, rays)
-                _, tex = aa_nearest(table.fields, table.group_counts, src,
-                                    direc)
-            ids[row0 + s:row0 + s + c.shape[0]] = tex.reshape(-1, rays)
-        row0 += T
-    return ids
+    with span("radiosity.form_factors"):
+        rays = int(cfg.rays_per_texel)
+        chunk = int(cfg.texels_per_chunk)
+        general = isinstance(table, Rects)
+        dev = table.n.device if general else table.fields.device
+        rows = sum(num_tiles(w) for w in scene.walls)
+        ids = torch.full((rows, rays), -1, dtype=torch.int32, device=dev)
+        if key is None:
+            key = threefry.prng_key(cfg.seed)
+        row0 = 0
+        for wi, wall in enumerate(scene.walls):
+            centers = torch.from_numpy(tile_centers(wall)).to(dev)
+            normal = torch.from_numpy(np.asarray(wall.n, f32)).to(dev)
+            T = num_tiles(wall)
+            for ci, s in enumerate(range(0, T, chunk)):
+                c = centers[s:s + chunk]
+                k = threefry.fold_in(threefry.fold_in(key, wi), ci)
+                if general:
+                    tex = form_factor_chunk(table, c, normal, k, rays)
+                else:
+                    src, direc = ff_rays(c, normal, k, rays)
+                    _, tex = aa_nearest(table.fields, table.group_counts, src,
+                                        direc)
+                ids[row0 + s:row0 + s + c.shape[0]] = tex.reshape(-1, rays)
+            row0 += T
+        return ids
 
 
 def level0_arena_indices(scene: Scene) -> np.ndarray:
@@ -179,13 +181,15 @@ def relax(src: torch.Tensor, ids, l0_idx: torch.Tensor,
     rho = f32(cfg.reflectance)
     keep = float(f32(1.0) - rho)
     gain = float(rho / f32(rays))
-    for _ in range(int(cfg.iterations)):
-        parts = [_gather(src.to(t.device), t) for t in tables]
-        dest = parts[0] if mesh is None else mesh.combine(parts)
-        dest_full = torch.zeros_like(src)
-        dest_full[l0_idx] = dest.to(src.device)
-        src = src * keep + dest_full * gain
-    return apply_plan(src, plan)
+    with span("radiosity.relax"):
+        for _ in range(int(cfg.iterations)):
+            parts = [_gather(src.to(t.device), t) for t in tables]
+            dest = parts[0] if mesh is None else mesh.combine(parts)
+            dest_full = torch.zeros_like(src)
+            dest_full[l0_idx] = dest.to(src.device)
+            src = src * keep + dest_full * gain
+    with span("radiosity.mipmap_apply"):
+        return apply_plan(src, plan)
 
 
 def _gather(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -227,11 +231,16 @@ def render_radiosity(scene: Scene, cfg: RadiosityConfig,
     """Radiosity of the scene's walls on `device`: the [num_texels, 3]
     arena (radiosity.render_radiosity): the axis-aligned form factors
     where the extended rects have a table, else the general ones."""
-    rects, table, src = prepare(scene, cfg, device)
+    with span("engine.tables"):
+        rects, table, src = prepare(scene, cfg, device)
     ids = form_factors(scene, table, cfg)
-    l0_idx = torch.from_numpy(level0_arena_indices(scene)).to(src.device)
-    out = relax(src, ids, l0_idx, build_plan(rects), cfg)
-    return out[:scene.num_texels].cpu().numpy()
+    with span("engine.tables"):
+        l0_idx = torch.from_numpy(level0_arena_indices(scene)).to(src.device)
+    with span("radiosity.mipmap_plan"):
+        plan = build_plan(rects)
+    out = relax(src, ids, l0_idx, plan, cfg)
+    with span("engine.readback"):
+        return out[:scene.num_texels].cpu().numpy()
 
 
 def render_radiosity_sharded(scene: Scene, cfg: RadiosityConfig,
@@ -251,21 +260,23 @@ def render_radiosity_sharded(scene: Scene, cfg: RadiosityConfig,
     the mipmap is rebuilt once, after the last. The same estimator as
     the single-device engine at the same total ray budget; the rays
     differ, so the two agree statistically."""
-    from ..parallel.mesh import photon_mesh
+    from ..parallel.mesh import per_device, photon_mesh
 
     mesh = mesh or photon_mesh()
     n = mesh.size
     rays_local = -(-int(cfg.rays_per_texel) // n)
     local_cfg = dataclasses.replace(cfg, rays_per_texel=rays_local)
-    preps = {}
-    for _, dev in mesh.shards():
-        if dev not in preps:
-            preps[dev] = prepare(scene, cfg, dev)
+    with span("engine.tables"):
+        preps = per_device(mesh, lambda dev: prepare(scene, cfg, dev))
     ids = []
     for ax, dev in mesh.shards():
         key = threefry.fold_in(threefry.prng_key(cfg.seed), ax)
         ids.append(form_factors(scene, preps[dev][1], local_cfg, key))
     rects, _, src = preps[mesh.devices[0]]
-    l0_idx = torch.from_numpy(level0_arena_indices(scene)).to(src.device)
-    out = relax(src, ids, l0_idx, build_plan(rects), cfg, mesh)
-    return out[:scene.num_texels].cpu().numpy()
+    with span("engine.tables"):
+        l0_idx = torch.from_numpy(level0_arena_indices(scene)).to(src.device)
+    with span("radiosity.mipmap_plan"):
+        plan = build_plan(rects)
+    out = relax(src, ids, l0_idx, plan, cfg, mesh)
+    with span("engine.readback"):
+        return out[:scene.num_texels].cpu().numpy()

@@ -28,6 +28,7 @@ import torch
 from ..config import PhotonConfig
 from ..ops import threefry
 from ..ops.device_scene import Emitters
+from ..utils.spans import span
 from .photon import EmitterSlice
 from .photon_wide import (
     emitter_schedule, schedule_batches, uniforms_per_photon,
@@ -102,54 +103,56 @@ def run_schedule(step: Step, emitters: Emitters, num_texels: int,
     every = int(cfg.checkpoint_every)
     if every < 1:
         raise ValueError(f"checkpoint_every must be >= 1, got {every}")
-    counts = np.asarray(emitters.counts)
-    dev = emitters.pos.device
-    lightmap = torch.zeros((int(num_texels), 3), dtype=torch.float32,
-                           device=dev)
-    resume_e, resume_b = 0, 0
-    if checkpoint_path is not None:
-        fp = ckpt.config_fingerprint(
-            cfg, num_texels, counts,
-            extra=(*fingerprint_extra, "torch", B, every))
-        state = ckpt.load(checkpoint_path, fp)
-        if state is not None:
-            arr, resume_e, resume_b = state
-            lightmap.copy_(torch.from_numpy(arr))
-            info(f"resuming from {checkpoint_path}: emitter {resume_e}, "
-                 f"batch {resume_b}")
+    with span("photon.schedule"):
+        counts = np.asarray(emitters.counts)
+        dev = emitters.pos.device
+        lightmap = torch.zeros((int(num_texels), 3), dtype=torch.float32,
+                               device=dev)
+        resume_e, resume_b = 0, 0
+        if checkpoint_path is not None:
+            fp = ckpt.config_fingerprint(
+                cfg, num_texels, counts,
+                extra=(*fingerprint_extra, "torch", B, every))
+            state = ckpt.load(checkpoint_path, fp)
+            if state is not None:
+                arr, resume_e, resume_b = state
+                lightmap.copy_(torch.from_numpy(arr))
+                info(f"resuming from {checkpoint_path}: emitter {resume_e}, "
+                     f"batch {resume_b}")
 
-    total = int(counts.sum())
-    done_before = 0     # photons of the emitters finished before this one
-    for entry in emitter_schedule(counts, B):
-        e, n_batches, n = entry[0], entry[2], int(counts[entry[0]])
-        if e < resume_e:
+        total = int(counts.sum())
+        done_before = 0     # photons of the emitters finished before this one
+        for entry in emitter_schedule(counts, B):
+            e, n_batches, n = entry[0], entry[2], int(counts[entry[0]])
+            if e < resume_e:
+                done_before += n
+                continue
+            batches = list(schedule_batches([entry], B, quantum is not None,
+                                            quantum or 1))
+            for off in range(resume_b if e == resume_e else 0, n_batches,
+                             every):
+                seg = batches[off:off + every]
+                for _, gb, n_valid, bsz in seg:
+                    step(lightmap, e, gb, n_valid, bsz)
+                if end_segment is not None:
+                    end_segment(lightmap)
+                nxt = off + len(seg)
+                if checkpoint_path is not None:
+                    cursor = (e, nxt) if nxt < n_batches else (e + 1, 0)
+                    if write_checkpoints:
+                        with span("photon.checkpoint"):
+                            ckpt.save(checkpoint_path,
+                                      lightmap.cpu().numpy(), *cursor, fp)
+                    kill_after = os.environ.get(
+                        "FLATMATCH_FAULT_EXIT_AFTER_CHECKPOINTS")
+                    if kill_after is not None:
+                        saves = getattr(run_schedule, "_fault_saves", 0) + 1
+                        run_schedule._fault_saves = saves
+                        if saves >= int(kill_after):
+                            warn(f"FAULT INJECTION: exiting after {saves} "
+                                 f"checkpoint rounds")
+                            os._exit(17)
+                if on_segment is not None:
+                    on_segment(lightmap, done_before + min(nxt * B, n), total)
             done_before += n
-            continue
-        batches = list(schedule_batches([entry], B, quantum is not None,
-                                        quantum or 1))
-        for off in range(resume_b if e == resume_e else 0, n_batches,
-                         every):
-            seg = batches[off:off + every]
-            for _, gb, n_valid, bsz in seg:
-                step(lightmap, e, gb, n_valid, bsz)
-            if end_segment is not None:
-                end_segment(lightmap)
-            nxt = off + len(seg)
-            if checkpoint_path is not None:
-                cursor = (e, nxt) if nxt < n_batches else (e + 1, 0)
-                if write_checkpoints:
-                    ckpt.save(checkpoint_path, lightmap.cpu().numpy(),
-                              *cursor, fp)
-                kill_after = os.environ.get(
-                    "FLATMATCH_FAULT_EXIT_AFTER_CHECKPOINTS")
-                if kill_after is not None:
-                    saves = getattr(run_schedule, "_fault_saves", 0) + 1
-                    run_schedule._fault_saves = saves
-                    if saves >= int(kill_after):
-                        warn(f"FAULT INJECTION: exiting after {saves} "
-                             f"checkpoint rounds")
-                        os._exit(17)
-            if on_segment is not None:
-                on_segment(lightmap, done_before + min(nxt * B, n), total)
-        done_before += n
-    return lightmap
+        return lightmap

@@ -17,6 +17,7 @@ from PIL import Image as PILImage
 
 from ..ops import tonemap
 from ..scene.rectangle import Rect, num_tiles
+from ..utils.spans import span
 
 
 def seam_dilate(rgb: np.ndarray) -> np.ndarray:
@@ -55,24 +56,27 @@ def tile_rgb(
 ) -> np.ndarray:
     """Tone-mapped uint8 [htiles, wtiles, 3] image for one wall
     (saveAs_core, rectangle.c:293-336)."""
-    data = texels[rect.base : rect.base + num_tiles(rect)].astype(np.float32)
-    rgb = tonemap.to_uint8(tonemap.tone_map(data))
-    if tonemap.is_floor_rect(rect.pos, rect.width, rect.height):
-        rgb = tonemap.apply_floor_tint(rgb, tint_extra)
-    rgb = rgb.reshape(rect.htiles, rect.wtiles, 3)
-    if dilate_seams:
-        rgb = seam_dilate(rgb)
-    return rgb
+    with span("export.tonemap"):
+        data = texels[rect.base : rect.base + num_tiles(rect)].astype(
+            np.float32)
+        rgb = tonemap.to_uint8(tonemap.tone_map(data))
+        if tonemap.is_floor_rect(rect.pos, rect.width, rect.height):
+            rgb = tonemap.apply_floor_tint(rgb, tint_extra)
+        rgb = rgb.reshape(rect.htiles, rect.wtiles, 3)
+        if dilate_seams:
+            rgb = seam_dilate(rgb)
+        return rgb
 
 
 def save_tile(
     rect: Rect, texels: np.ndarray, path: str, tint_extra: bool,
     dilate_seams: bool = False,
 ) -> None:
-    """saveAs (rectangle.c:338-346)."""
-    PILImage.fromarray(
-        tile_rgb(rect, texels, tint_extra, dilate_seams), "RGB"
-    ).save(path)
+    """saveAs (rectangle.c:338-346): the tone map, then the PNG encoded and
+    written."""
+    rgb = tile_rgb(rect, texels, tint_extra, dilate_seams)
+    with span("export.encode"):
+        PILImage.fromarray(rgb, "RGB").save(path)
 
 
 def save_tiles(
@@ -83,14 +87,15 @@ def save_tiles(
     dilate_seams: bool = False,
 ) -> list:
     """Per-wall tiles/tile_<i>.png export loop (main.c:83-95)."""
-    out = pathlib.Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    paths = []
-    for i, r in enumerate(walls):
-        p = out / f"tile_{i}.png"
-        save_tile(r, texels, str(p), tint_extra, dilate_seams)
-        paths.append(p)
-    return paths
+    with span("export.tiles"):
+        out = pathlib.Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        paths = []
+        for i, r in enumerate(walls):
+            p = out / f"tile_{i}.png"
+            save_tile(r, texels, str(p), tint_extra, dilate_seams)
+            paths.append(p)
+        return paths
 
 
 def save_tile_raw(rect: Rect, texels: np.ndarray, path: str) -> None:

@@ -40,6 +40,7 @@ from ..ops import threefry
 from ..ops.aa_scene import AARects
 from ..ops.device_scene import Emitters, Rects
 from ..scene.geometry import Scene
+from ..utils.spans import span
 from . import multihost
 
 LANES = pw.LANES
@@ -87,12 +88,13 @@ class PhotonMesh:
         """The sum of every shard's partial (equal shapes), added in global
         shard order one after another, on the first local partial's
         device."""
-        dev = partials[0].device
-        acc = None
-        for p in self._everyone(partials):
-            acc = (p.to(dev, copy=True) if acc is None
-                   else acc + p.to(dev))
-        return acc
+        with span("mesh.combine"):
+            dev = partials[0].device
+            acc = None
+            for p in self._everyone(partials):
+                acc = (p.to(dev, copy=True) if acc is None
+                       else acc + p.to(dev))
+            return acc
 
     def gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """Every shard's part (equal shapes) concatenated along dim 0 in
@@ -220,8 +222,9 @@ def render_photons_sharded_wide(
     pw.check_port_cfg(cfg)
     if cfg.splat in ("inkernel_i8", "fused_i8"):
         pw.check_i8_accumulator(cfg, b_local)
-    aa_c, total_c, expand = pw.compact_aa(aa, num_texels)
-    fields = per_device(mesh, lambda d: aa_c.fields.to(d))
+    with span("engine.tables"):
+        aa_c, total_c, expand = pw.compact_aa(aa, num_texels)
+        fields = per_device(mesh, lambda d: aa_c.fields.to(d))
     shards = []
     for ax, dev in mesh.shards():
         step, quantum = pw.batch_step(fields[dev], aa_c.group_counts,
@@ -243,7 +246,8 @@ def render_photons_sharded_wide(
 
     compact = _run(mesh, shards, emitters, total_c, cfg, checkpoint_path,
                    ("wide-sharded", "compact", n), seg_cb)
-    return expand(compact)
+    with span("engine.readback"):
+        return expand(compact)
 
 
 def render_photons_sharded(
@@ -266,8 +270,9 @@ def render_photons_sharded(
     b_local = B // n
     cfg = dataclasses.replace(cfg, photons_per_batch=B)
     U = pw.uniforms_per_photon(cfg.max_depth)
-    tables = per_device(mesh, lambda d: (to_device(rects, d),
-                                          to_device(emitters, d)))
+    with span("engine.tables"):
+        tables = per_device(mesh, lambda d: (to_device(rects, d),
+                                              to_device(emitters, d)))
     slices = {}
     shards = []
     for ax, dev in mesh.shards():

@@ -25,6 +25,7 @@ from .config import DEFAULT_CONFIG, Engine, RenderConfig
 from .io import tiles as tiles_io
 from .ops.device_scene import exposure_scale, pack_emitters
 from .scene import collision, geometry, image as im, layout
+from .utils.spans import span
 
 f32 = np.float32
 
@@ -40,12 +41,13 @@ class RenderResult:
 
 def compile_scene(layout_png: str, scale: float, cfg: RenderConfig):
     """Layout PNG -> compiled scene + collision JSON (main.c:33-52)."""
-    img = im.load_layout(layout_png)
-    collision_json = collision.build_collision_map(img, cfg.scene)
-    lay = layout.parse_layout(
-        img, f32(1.0) / f32(scale), cfg.scene.tile_size, cfg.scene
-    )
-    return geometry.Scene(lay), collision_json
+    with span("scene.build"):
+        img = im.load_layout(layout_png)
+        collision_json = collision.build_collision_map(img, cfg.scene)
+        lay = layout.parse_layout(
+            img, f32(1.0) / f32(scale), cfg.scene.tile_size, cfg.scene
+        )
+        return geometry.Scene(lay), collision_json
 
 
 def supersampled_scene(
@@ -175,91 +177,101 @@ def run_engine(scene: geometry.Scene, cfg: RenderConfig,
     resumes it bit-identically, and `on_segment(raw_lightmap,
     photons_done, photons_total)` fires after every dispatch segment with
     the un-normalized lightmap (engines/schedule.py). The other engines
-    warn and ignore `checkpoint_path`."""
+    warn and ignore `checkpoint_path`.
+
+    Under a recording torch.profiler the call is the span `engine.run`
+    (utils/spans.py), its table packing `engine.tables`, the photon
+    arena's copy to the host with the exposure scale `engine.readback`,
+    and the engines' steps spans of their own."""
     from .engines import photon_wide
     from .ops import aa_scene
     from .ops.device_scene import pack_rects
     from .parallel import mesh as pmesh
     from .utils.progress import info, warn
 
-    if mesh == "auto":
-        mesh = _auto_mesh(device)
-    if mesh is not None:
-        device = mesh.devices[0]
-        shards = (f"{mesh.size} shards ({mesh.local_count} here, "
-                  f"{mesh.process_count} processes)")
-    photon_engine = cfg.engine in (Engine.PHOTON_PALLAS, Engine.PHOTON_XLA)
-    if checkpoint_path is not None and not photon_engine:
-        warn("--checkpoint applies to the photon engines only; ignored")
-    if cfg.engine is Engine.AMBIENT_OCCLUSION:
-        from .engines import ao
-
-        aa = aa_scene.pack_aa(scene.walls, device=device)
-        if aa is None:
-            from .engines import ao_general
-
-            return ao_general.render_ao(
-                scene, pack_rects(scene.walls, device=device), cfg.ao)
+    with span("engine.run"):
+        if mesh == "auto":
+            mesh = _auto_mesh(device)
         if mesh is not None:
-            kind = "fused" if cfg.ao.fused else "chunked"
-            info(f"sharded {kind} AO engine over {shards}")
-            render_ao = (pmesh.render_ao_fused_sharded if cfg.ao.fused
-                         else pmesh.render_ao_sharded)
-            return render_ao(scene, aa, cfg.ao, mesh)
-        if cfg.ao.fused:
-            return ao.render_ao_fused(scene, aa, cfg.ao)
-        return ao.render_ao(scene, aa, cfg.ao)
-    if cfg.engine is Engine.RADIOSITY:
-        from .engines import radiosity
+            device = mesh.devices[0]
+            shards = (f"{mesh.size} shards ({mesh.local_count} here, "
+                      f"{mesh.process_count} processes)")
+        photon_engine = cfg.engine in (Engine.PHOTON_PALLAS,
+                                       Engine.PHOTON_XLA)
+        if checkpoint_path is not None and not photon_engine:
+            warn("--checkpoint applies to the photon engines only; ignored")
+        if cfg.engine is Engine.AMBIENT_OCCLUSION:
+            from .engines import ao
 
+            with span("engine.tables"):
+                aa = aa_scene.pack_aa(scene.walls, device=device)
+            if aa is None:
+                from .engines import ao_general
+
+                with span("engine.tables"):
+                    rects = pack_rects(scene.walls, device=device)
+                return ao_general.render_ao(scene, rects, cfg.ao)
+            if mesh is not None:
+                kind = "fused" if cfg.ao.fused else "chunked"
+                info(f"sharded {kind} AO engine over {shards}")
+                render_ao = (pmesh.render_ao_fused_sharded if cfg.ao.fused
+                             else pmesh.render_ao_sharded)
+                return render_ao(scene, aa, cfg.ao, mesh)
+            if cfg.ao.fused:
+                return ao.render_ao_fused(scene, aa, cfg.ao)
+            return ao.render_ao(scene, aa, cfg.ao)
+        if cfg.engine is Engine.RADIOSITY:
+            from .engines import radiosity
+
+            if mesh is not None:
+                info(f"sharded radiosity engine over {shards} (ray axis)")
+                return radiosity.render_radiosity_sharded(
+                    scene, cfg.radiosity, mesh)
+            return radiosity.render_radiosity(scene, cfg.radiosity, device)
+        if cfg.engine is Engine.PHOTON_ORACLE:
+            from .engines import photon_oracle_driver
+
+            lightmap = photon_oracle_driver.render_photons_np(
+                scene, cfg.photon, device)
+            scale = exposure_scale(
+                scene, cfg.photon.samples_per_area, cfg.photon.exposure
+            )
+            return lightmap * scale[:, None]
+        if not photon_engine:
+            raise ValueError(f"unknown engine {cfg.engine}")
+        with span("engine.tables"):
+            emitters = pack_emitters(
+                scene, cfg.photon.samples_per_area, cfg.photon.window_color,
+                cfg.photon.light_color, device=device,
+            )
+            use_pallas = cfg.engine is Engine.PHOTON_PALLAS
+            if use_pallas and scene.num_texels >= aa_scene.MAX_TEXELS:
+                warn("texel arena exceeds 2^24 (f32-exact kernel ids); "
+                     "using the general engine")
+                use_pallas = False
+            aa = (aa_scene.pack_aa(scene.walls, device=device)
+                  if use_pallas else None)
+            rects = (None if use_pallas and aa is not None
+                     else pack_rects(scene.walls, device=device))
         if mesh is not None:
-            info(f"sharded radiosity engine over {shards} (ray axis)")
-            return radiosity.render_radiosity_sharded(scene, cfg.radiosity,
-                                                      mesh)
-        return radiosity.render_radiosity(scene, cfg.radiosity, device)
-    if cfg.engine is Engine.PHOTON_ORACLE:
-        from .engines import photon_oracle_driver
-
-        lightmap = photon_oracle_driver.render_photons_np(
-            scene, cfg.photon, device)
-        scale = exposure_scale(
-            scene, cfg.photon.samples_per_area, cfg.photon.exposure
-        )
-        return lightmap * scale[:, None]
-    if not photon_engine:
-        raise ValueError(f"unknown engine {cfg.engine}")
-    emitters = pack_emitters(
-        scene, cfg.photon.samples_per_area, cfg.photon.window_color,
-        cfg.photon.light_color, device=device,
-    )
-    use_pallas = cfg.engine is Engine.PHOTON_PALLAS
-    if use_pallas and scene.num_texels >= aa_scene.MAX_TEXELS:
-        warn("texel arena exceeds 2^24 (f32-exact kernel ids); using the "
-             "general engine")
-        use_pallas = False
-    aa = aa_scene.pack_aa(scene.walls, device=device) if use_pallas else None
-    if mesh is not None:
-        if use_pallas and aa is not None:
-            info(f"sharded wide photon engine over {shards}")
-            lightmap = pmesh.render_photons_sharded_wide(
-                emitters, scene.num_texels, cfg.photon, aa, mesh,
+            if use_pallas and aa is not None:
+                info(f"sharded wide photon engine over {shards}")
+                lightmap = pmesh.render_photons_sharded_wide(
+                    emitters, scene.num_texels, cfg.photon, aa, mesh,
+                    checkpoint_path=checkpoint_path, on_segment=on_segment)
+            else:
+                if use_pallas:
+                    warn("scene has non-axis-aligned rects; wide AA engine "
+                         "unavailable")
+                info(f"sharded general photon engine over {shards}")
+                lightmap = pmesh.render_photons_sharded(
+                    rects, emitters, scene.num_texels, cfg.photon, mesh,
+                    checkpoint_path=checkpoint_path, on_segment=on_segment)
+        elif use_pallas and aa is not None:
+            lightmap = photon_wide.render_photons(
+                emitters, scene.num_texels, cfg.photon, aa,
                 checkpoint_path=checkpoint_path, on_segment=on_segment)
-        else:
-            if use_pallas:
-                warn("scene has non-axis-aligned rects; wide AA engine "
-                     "unavailable")
-            info(f"sharded general photon engine over {shards}")
-            lightmap = pmesh.render_photons_sharded(
-                pack_rects(scene.walls, device=device), emitters,
-                scene.num_texels, cfg.photon, mesh,
-                checkpoint_path=checkpoint_path, on_segment=on_segment)
-    elif use_pallas and aa is not None:
-        lightmap = photon_wide.render_photons(
-            emitters, scene.num_texels, cfg.photon, aa,
-            checkpoint_path=checkpoint_path, on_segment=on_segment)
-    else:
-        rects = pack_rects(scene.walls, device=device)
-        if use_pallas:
+        elif use_pallas:
             from .engines import photon_narrow
 
             warn("scene has non-axis-aligned rects; wide AA engine "
@@ -273,10 +285,11 @@ def run_engine(scene: geometry.Scene, cfg: RenderConfig,
             lightmap = photon.render_photons(
                 rects, emitters, scene.num_texels, cfg.photon,
                 checkpoint_path=checkpoint_path, on_segment=on_segment)
-    scale = exposure_scale(
-        scene, cfg.photon.samples_per_area, cfg.photon.exposure
-    )
-    return lightmap.cpu().numpy() * scale[:, None]
+        with span("engine.readback"):
+            scale = exposure_scale(
+                scene, cfg.photon.samples_per_area, cfg.photon.exposure
+            )
+            return lightmap.cpu().numpy() * scale[:, None]
 
 
 def render(

@@ -13,6 +13,7 @@ from typing import List
 
 import numpy as np
 
+from ..utils.spans import span
 from .layout import ParsedLayout
 from .rectangle import Rect, length_f32, num_mipmap_texels, num_tiles
 
@@ -65,29 +66,33 @@ def _fmt_vec(p) -> str:
 def geometry_json(scene: Scene) -> str:
     """Exact reproduction of the reference geometry.json
     (geometry.c:57-90)."""
-    lay = scene.layout
-    out = []
-    sp = lay.starting_position
-    out.append('{\n"startingPosition" : [%s, %s],\n' % (_fmt(sp[0]), _fmt(sp[1])))
-    out.append('"layoutImageSize" : [%d, %d],\n' % (lay.width, lay.height))
-    out.append('"geometry" : [\n')
-    nw = len(lay.walls)
-    for i, r in enumerate(lay.walls):
-        out.append(
-            '  { "pos": %s, "width": %s, "height": %s, "textureId": %d}%s\n'
-            % (_fmt_vec(r.pos), _fmt_vec(r.width), _fmt_vec(r.height), i,
-               "," if i + 1 < nw else "")
-        )
-    out.append('],\n"box": [\n')
-    nb = len(lay.box)
-    for i, r in enumerate(lay.box):
-        out.append(
-            '  { "pos": %s, "width": %s, "height": %s}%s\n'
-            % (_fmt_vec(r.pos), _fmt_vec(r.width), _fmt_vec(r.height),
-               "," if i + 1 < nb else "")
-        )
-    out.append(']\n}\n')
-    return "".join(out)
+    with span("export.geometry"):
+        lay = scene.layout
+        out = []
+        sp = lay.starting_position
+        out.append('{\n"startingPosition" : [%s, %s],\n'
+                   % (_fmt(sp[0]), _fmt(sp[1])))
+        out.append('"layoutImageSize" : [%d, %d],\n'
+                   % (lay.width, lay.height))
+        out.append('"geometry" : [\n')
+        nw = len(lay.walls)
+        for i, r in enumerate(lay.walls):
+            out.append(
+                '  { "pos": %s, "width": %s, "height": %s, '
+                '"textureId": %d}%s\n'
+                % (_fmt_vec(r.pos), _fmt_vec(r.width), _fmt_vec(r.height),
+                   i, "," if i + 1 < nw else "")
+            )
+        out.append('],\n"box": [\n')
+        nb = len(lay.box)
+        for i, r in enumerate(lay.box):
+            out.append(
+                '  { "pos": %s, "width": %s, "height": %s}%s\n'
+                % (_fmt_vec(r.pos), _fmt_vec(r.width), _fmt_vec(r.height),
+                   "," if i + 1 < nb else "")
+            )
+        out.append(']\n}\n')
+        return "".join(out)
 
 
 def mipmap_level_offsets(r: Rect):

@@ -153,26 +153,29 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    out = library_path()
-    t0 = time.perf_counter()
-    if not out.exists():
-        from .progress import info
+    from .spans import span
 
-        info(f"building the CUDA kernels into {out.name} (first use)")
-        log = _build(out)
-    elif out.with_suffix(".log").exists():
-        log = out.with_suffix(".log").read_text()
-    else:
-        log = ""
-    lib = ctypes.CDLL(str(out))
-    for name, argtypes in ENTRY_POINTS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    build_info.update(seconds=time.perf_counter() - t0, log=log,
-                      path=str(out))
-    _lib = lib
-    return lib
+    with span("setup.load_library"):
+        out = library_path()
+        t0 = time.perf_counter()
+        if not out.exists():
+            from .progress import info
+
+            info(f"building the CUDA kernels into {out.name} (first use)")
+            log = _build(out)
+        elif out.with_suffix(".log").exists():
+            log = out.with_suffix(".log").read_text()
+        else:
+            log = ""
+        lib = ctypes.CDLL(str(out))
+        for name, argtypes in ENTRY_POINTS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        build_info.update(seconds=time.perf_counter() - t0, log=log,
+                          path=str(out))
+        _lib = lib
+        return lib
 
 
 def table_plan(name: str, dev, *args) -> dict:
