@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from flatmatch_tpu_torch/csrc and drives the port's
-sixteen groups of paths on the card:
+seventeen groups of paths on the card:
 - the render: the production kernel against its plain PyTorch version,
   `tests/fixtures/mini.png` through the port's CLI at its defaults, the
   physics against the reference C engine's golden lightmap, and a 4x4
@@ -145,7 +145,14 @@ sixteen groups of paths on the card:
   peak memory (62); and the product render at the CLI's defaults with its
   172 tiles and geometry.json, against the reference dump in distribution
   (63). The kernels line gives each row's device ms, launches and bound
-  on the flagship under "flagship".
+  on the flagship under "flagship";
+- the relaxation's gather (csrc/relax_gather.cu) against its plain
+  version on the flagship's form-factor table at 10,000 rays, a random
+  table of that shape with 5% misses and its first 2,500 rays, and mini's
+  table: rtol 1e-5, two launches bit for bit, device ms beside the bound
+  and the plain version's ms (phase 64). Phases 16, 45, 50 and 62 count
+  its launches, one an iteration and a shard; the kernels line gives
+  phase 16's and, under "flagship", phase 62's.
 The kernels line's times, and phases 12's, 17's, 30's and 37-39's
 kernel times, are device times
 (device_ms:
@@ -224,6 +231,10 @@ KERNEL_SITES = {
     # intersect_all, which nearest_hit (:74) reduces
     "general_nearest": ("ops.intersect", "general_nearest",
                         "flatmatch_tpu/ops/intersect.py:45"),
+    # the relaxation's gather runs in XLA, not Pallas: the line is its
+    # _gather_chunk
+    "relax_gather": ("ops.relax_gather", "relax_gather",
+                     "flatmatch_tpu/engines/radiosity.py:176"),
 }
 # the wrapper of a kernel is the function of its name, except
 WRAPPER_NAMES = {"threefry_uniform": "uniform",
@@ -1058,9 +1069,14 @@ def ao_radiosity_phases(dev, results, make_layout):
     check(launches["aa_nearest"] == n_chunks
           and launches["threefry_uniform"] == n_chunks,
           f"aa_nearest and threefry: {launches}, want {n_chunks} each")
-    check(sum(launches.values()) == 2 * n_chunks,
+    iters = cfg.radiosity.iterations
+    check(launches["relax_gather"] == iters,
+          f"relax_gather: {launches}, want {iters}")
+    check(sum(launches.values()) == 2 * n_chunks + iters,
           f"radiosity launched other kernels: {launches}")
     results["aa_nearest"]["launches"] = n_chunks
+    results.setdefault("relax_gather", {})["launches"] = launches[
+        "relax_gather"]
 
     def split(scene_, rad):
         """Seconds of the form factors and of the relaxation, the table's
@@ -3641,9 +3657,11 @@ def general_intersector_phases(dev, results, make_layout):
     launches45 = {k: v for k, v in read_launches().items() if v}
     peak45 = torch.cuda.max_memory_allocated()
     check(launches45 == {"general_nearest": chunks,
-                         "threefry_uniform": chunks},
+                         "threefry_uniform": chunks,
+                         "relax_gather": rad.iterations},
           f"rotated mini radiosity launches {launches45}, want {chunks} "
-          f"general_nearest and threefry_uniform")
+          f"general_nearest and threefry_uniform, {rad.iterations} "
+          f"relax_gather")
     results["general_nearest"]["launches"] = chunks
     bands45 = radiosity_bands(rscene, out45, rad.rays_per_texel)
     prof45 = profiled(lambda: run_engine(rscene, cfg_rad, dev))
@@ -4173,6 +4191,9 @@ def sharded_phases(dev, make_layout):
                            for w in scene.walls)
             check(n == n_chunks * mesh.size,
                   f"50: {n} form-factor launches on {mesh.size} shards")
+            g = read_launches()["relax_gather"]
+            check(g == rc.iterations * mesh.size,
+                  f"50: {g} gathers on {mesh.size} shards")
             rays_local = -(-rays // mesh.size)
             row[mname] = dict(
                 wall_s=wall, peak_bytes=peak, shards=mesh.size,
@@ -4690,7 +4711,7 @@ FLAGSHIP_GATE_KERNELS = {
     "i8": ("trace_deposits_wide_rng", "fused_splat", "fused_splat_i8",
            "fused_splat_i8_add", "trace_splat_wide_rng_i8"),
     "ao": ("ao_fused", "nearest_distances", "general_nearest"),
-    "radiosity": ("threefry_uniform", "aa_nearest"),
+    "radiosity": ("threefry_uniform", "aa_nearest", "relax_gather"),
     "render": ("trace_splat_wide_rng_i8",),
 }
 
@@ -4944,6 +4965,92 @@ def flagship_phases(dev, results):
             plain_ms=r["plain_ms"], max_abs_err=r["max_abs_err"])
     results["trace_splat_wide_rng_i8"]["flagship"]["render_launches"] = \
         launches
+    # phase 64 adds the gather's flagship times
+    results.setdefault("relax_gather", {})["flagship"] = dict(
+        launches=launched.get("relax_gather", 0))
+
+
+def gather_bound(rows, rays, total):
+    """(bound_ms, bound_by) of one relax_gather launch: the id table read
+    once, the float4 arena read once, the sums written."""
+    return bound(4 * rows * rays + 16 * (total + 1) + 12 * rows, 0)
+
+
+def relax_gather_phase(dev, results):
+    """64. the relaxation's gather (csrc/relax_gather.cu) against its plain
+    version on the card: the flagship's own form-factor table at the
+    production budget (85,056 x 10,000), a random table of that shape with
+    5% misses, that table's first 2,500 rays (a four-shard slice), and
+    mini's table at 10,000 rays, each over a random positive arena: rtol
+    1e-5 against relax_gather_plain (the sums in another order), two
+    launches bit for bit, device ms and host µs a launch, the plain
+    version's ms and the bound (the table read once at 3.35 TB/s). Adds
+    mini's and the flagship's times to `results["relax_gather"]`, whose
+    launches phases 16 and 62 counted."""
+    import torch
+
+    from flatmatch_tpu_torch.engines import radiosity
+    from flatmatch_tpu_torch.ops import relax_gather as rg
+    from flatmatch_tpu_torch.render import compile_scene
+    from flatmatch_tpu_torch.tools import flagship
+
+    t0 = time.perf_counter()
+    rad = flagship.cli_config().radiosity
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(64)
+
+    def table(scene):
+        _, aa, src = radiosity.prepare(scene, rad, dev)
+        ids = radiosity.form_factors(scene, aa, rad)
+        arena = torch.rand(src.shape, generator=gen, device=dev) * 30
+        return arena, ids
+
+    def compare(name, arena, ids):
+        rows, rays = ids.shape
+        got = rg.relax_gather(arena, ids)
+        again = rg.relax_gather(arena, ids)
+        want = rg.relax_gather_plain(arena, ids)
+        sync()
+        check(torch.equal(got, again), f"64 {name}: two launches differ")
+        rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+        check(rel <= 1e-5, f"64 {name}: {rel} from the plain version")
+        ms, host_us = device_ms(lambda: rg.relax_gather(arena, ids), 10)
+        bnd = gather_bound(rows, rays, arena.shape[0])
+        return dict(
+            rows=rows, rays=rays, miss_share=(ids < 0).float().mean().item(),
+            max_rel_err=rel, bit_identical=True, ms=ms, host_us=host_us,
+            plain_ms=cuda_ms(lambda: rg.relax_gather_plain(arena, ids), 2),
+            bound_ms=bnd[0], bound_by=bnd[1], share_of_bound=bnd[0] / ms)
+
+    out = {}
+    scene = flagship.flagship_scene()
+    arena, ids = table(scene)
+    check(tuple(ids.shape) == (85056, rad.rays_per_texel),
+          f"64: flagship table {tuple(ids.shape)}")
+    out["flagship"] = compare("flagship", arena, ids)
+    ids = torch.randint(0, arena.shape[0], tuple(ids.shape), generator=gen,
+                        device=dev, dtype=torch.int32)
+    ids[torch.rand(ids.shape, generator=gen, device=dev) < 0.05] = -1
+    out["flagship_random"] = compare("flagship random", arena, ids)
+    ids = ids[:, :2500].contiguous()
+    out["flagship_random_2500"] = compare("flagship random 2500", arena,
+                                          ids)
+    del ids
+    mini, _ = compile_scene(str(FIXTURES / "mini.png"), 30.0,
+                            flagship.cli_config())
+    out["mini"] = compare("mini", *table(mini))
+    f = out["flagship"]
+    entry = results.setdefault("relax_gather", {})
+    entry.update(
+        max_abs_err=None, max_rel_err=out["mini"]["max_rel_err"],
+        ms=out["mini"]["ms"], plain_ms=out["mini"]["plain_ms"],
+        bound_ms=out["mini"]["bound_ms"], bound_by=out["mini"]["bound_by"],
+        library_ms=None)
+    entry.setdefault("flagship", {}).update(
+        ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+        bound_by=f["bound_by"], max_rel_err=f["max_rel_err"])
+    say("relax_gather_vs_plain", **out, card=card_line(),
+        seconds=time.perf_counter() - t0)
 
 
 def main():
@@ -5291,6 +5398,7 @@ def main():
     sharded_phases(dev, make_layout)
     sharded_fit_phases(dev, make_layout)
     flagship_phases(dev, results)
+    relax_gather_phase(dev, results)
 
     print(json.dumps({"kernels": [dict(KERNELS[k], **results[k])
                                   for k in KERNELS]}))

@@ -21,15 +21,18 @@ parallel/mesh.py), after performRadiosityNative
   4. `iterations` gathers with reflectance rho:
          dest[t] = sum_j src[ids[t, j]]
          src     = src * (1 - rho) + dest * rho / rays
-     and one mipmap rebuild after the last (the gather reads level-0 ids
-     only, so rebuilds between iterations are overwritten unread);
+     (the gather one launch of `ops/relax_gather.relax_gather`,
+     `csrc/relax_gather.cu`, an iteration and a shard) and one mipmap
+     rebuild after the last (the gather reads level-0 ids only, so
+     rebuilds between iterations are overwritten unread);
   5. the first num_texels rows (the wall arena) are the result.
 
 The id table lives on the device as int32 [rows, rays], one row per level-0
 wall texel in wall order (the JAX package's compact rows): at the CLI
 default of 10000 rays, 240 MB on tests/fixtures/mini.png and 3.86 GB on its
-4x4 tiling. It is gathered in chunks of (1 << 22) // rays rows, so no
-[rows, rays, 3] tensor is ever made.
+4x4 tiling. The kernel streams it once an iteration; the plain version
+on the CPU gathers (1 << 22) // rays rows at a time, so no [rows, rays, 3]
+tensor is ever made.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ from ..ops.aa_scene import AARects, pack_aa
 from ..ops.device_scene import Rects, pack_rects
 from ..ops.intersect import nearest_hit
 from ..ops.mipmap import MipmapPlan, apply_plan, build_plan
+from ..ops.relax_gather import relax_gather
 from ..ops.sampling import TWO_PI_REF, build_base
 from ..ops.tile import texel_index
 from ..scene.geometry import Scene
@@ -55,7 +59,6 @@ from ..utils.spans import span
 from .ao import NUDGE, tile_centers
 
 f32 = np.float32
-GATHER_IDS = 1 << 22            # ids gathered per step of the relaxation
 
 
 def extended_rects(scene: Scene) -> Tuple[List[Rect], int, int, int]:
@@ -183,30 +186,13 @@ def relax(src: torch.Tensor, ids, l0_idx: torch.Tensor,
     gain = float(rho / f32(rays))
     with span("radiosity.relax"):
         for _ in range(int(cfg.iterations)):
-            parts = [_gather(src.to(t.device), t) for t in tables]
+            parts = [relax_gather(src.to(t.device), t) for t in tables]
             dest = parts[0] if mesh is None else mesh.combine(parts)
             dest_full = torch.zeros_like(src)
             dest_full[l0_idx] = dest.to(src.device)
             src = src * keep + dest_full * gain
     with span("radiosity.mipmap_apply"):
         return apply_plan(src, plan)
-
-
-def _gather(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """dest[r] = sum_j src[ids[r, j]] [rows, 3] on ids' device, a miss
-    (id -1) adding a zero row; (1 << 22) // rays rows at a time, so no
-    [rows, rays, 3] tensor is made."""
-    rows, rays = ids.shape
-    step = max(1, GATHER_IDS // max(rays, 1))
-    # a zero row past the arena takes the misses
-    miss_row = torch.tensor(src.shape[0], dtype=torch.int64,
-                            device=src.device)
-    src_ext = torch.cat([src, src.new_zeros((1, 3))])
-    dest = src.new_empty((rows, 3))
-    for r0 in range(0, rows, step):
-        sl = ids[r0:r0 + step].long()
-        dest[r0:r0 + step] = src_ext[torch.where(sl < 0, miss_row, sl)].sum(1)
-    return dest
 
 
 def prepare(scene: Scene, cfg: RadiosityConfig, device="cuda"):

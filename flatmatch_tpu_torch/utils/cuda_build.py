@@ -68,6 +68,7 @@ ENTRY_POINTS = {
     "fm_threefry_uniform_t": [_U32, _U32, _I, _I, _P, _P],
     "fm_general_nearest": [_P] * 5 + [_I] * 2 + [_P],
     "fm_general_nearest_plan": [_I, _P, _P, _P, _P],
+    "fm_relax_gather": [_P] * 3 + [_I] * 3 + [_P],
 }
 SMEM_LIMIT = 232448   # dynamic shared memory of a block on sm_90
 
