@@ -10,17 +10,21 @@ layout, run one warm-up request and freeze what set-up made out of
 Python's cyclic collector. Then the traffic mix's loop runs requests for
 `--seconds` (loop.py's closed loop: back to back). Once the window has closed, the device memory peak
 is read, the program's state is dropped, and the reference estimates on
-the first card what the last request should have returned; the checks
-(reference/compare.py) decide `correct`. The last line of standard output
-is the result, its last key the checks beside their limits, which also
-close standard error.
+the first card what the last request should have returned, given what
+that request consumed where the mix returns it (`inputs`, loop.py); the
+reference kind's own checks, or reference/compare.py's, decide `correct`.
+The last line of standard output is the result, its last key the checks
+beside their limits, which also close standard error. A run that cannot
+be judged (no outputs though no request failed; checks and limits that
+disagree; a reference with nothing to judge by) says why on standard
+error and prints no result.
 
 With --trace 1 the mix's `trace_requests` more requests run after the
 window under torch.profiler, and the result carries the cell's per-layer
 metrics (the spans from the window's requests, the rest from the trace),
 the device's busy and window seconds, and a breakdown; with --trace 0 it
-carries the end-to-end metrics. Every request's arena must equal the
-last one's.
+carries the end-to-end metrics. Every request's digest that the mix
+gives must equal the last one's (`answers_differ`).
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ from .reference import compare
 from .reference.layout import parse_rects
 
 FOREIGN = ("jax", "jaxlib", "flax", "flatmatch_tpu")
-NO_CARD, FOREIGN_IMPORT = 2, 3
+NO_CARD, FOREIGN_IMPORT, NOT_JUDGED = 2, 3, 4
 
 
 def foreign_modules(names) -> list:
@@ -151,10 +155,10 @@ def run_cell(args, root, bench, cell, config, mix, devices, t_start) -> int:
             if cuda:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             with torch.profiler.profile(activities=acts):
-                loop.request(layout, warm, target)
+                mix.request(layout, warm, target)
             profiler = torch.profiler.profile(activities=acts)
         else:
-            loop.request(layout, warm, target)
+            mix.request(layout, warm, target)
         sync()
         # set-up's objects (torch's modules, the layout) leave the cyclic
         # collector, so that a collection inside the window scans only what
@@ -170,7 +174,13 @@ def run_cell(args, root, bench, cell, config, mix, devices, t_start) -> int:
         win = mix.window(layout, rcfg, target, args.seconds)
         peak_window = [torch.cuda.max_memory_allocated(d) if cuda else 0
                        for d in devices]
-        texels = win.pop("last")
+        outputs = win.pop("last")
+        inputs = win.pop("inputs", None)
+        if outputs is None and win["failed"] == 0:
+            print(f"benchmark: cell {cell['name']}: its traffic mix returned "
+                  "no outputs, though no request failed: nothing to judge",
+                  file=sys.stderr)
+            return NOT_JUDGED
         run = dict(setup_s=setup_s, window_s=win["seconds"],
                    requests=win["requests"], spans=win["spans"],
                    peak_window_bytes=max(peak_window), trace=None,
@@ -192,21 +202,28 @@ def run_cell(args, root, bench, cell, config, mix, devices, t_start) -> int:
         if cuda:
             torch.cuda.empty_cache()
         t_ref = time.perf_counter()
-        if texels is None:
+        if outputs is None:
             checks = [("answers_differ", differ, 0)]
         else:
-            ref = registry.reference(config["reference"]["kind"]).expected(
-                layout, config["settings"], config["reference"], args.seed,
-                devices[0])
-            run["work"] = ref["work"]
-            checks = compare.checks(
-                layout, texels, ref, out_dir, target.tint_extra, differ,
-                config["limits"])
+            name = config["reference"]["kind"]
+            kind = registry.reference(name)
+            try:
+                ref = compare.expected(
+                    kind, layout, config["settings"], config["reference"],
+                    args.seed, devices[0], inputs)
+                run["work"] = ref.get("work")
+                checks = compare.judge(
+                    kind, layout, outputs, ref, out_dir, target.tint_extra,
+                    differ, config["limits"], inputs)
+            except compare.CheckError as e:
+                print(f"benchmark: cell {cell['name']}, reference kind "
+                      f"{name!r}: cannot judge the run: {e}", file=sys.stderr)
+                return NOT_JUDGED
         print(f"benchmark: setup_s {setup_s:.3f} window_s "
               f"{win['seconds']:.3f} requests {win['requests']} "
               f"check_s {time.perf_counter() - t_ref:.3f}", file=sys.stderr)
         for k in ("scene", "engine", "export"):
-            v = [s[k] for s in win["spans"]]
+            v = [s[k] for s in win["spans"] if k in s]
             if v:
                 print(f"benchmark: {k}_s min {min(v):.4f} median "
                       f"{sorted(v)[len(v) // 2]:.4f} max {max(v):.4f}",

@@ -17,6 +17,14 @@ Mix parameters:
 - "photons_per_batch_per_chip" (optional): the photon engines' global
   batch is this times the cell's chips, so each card launches batches of
   this size; without it the configuration's batch holds.
+
+What a request returns (its outputs) is a [T, 3] arena, or a mapping of
+named arrays with the arena, where there is one, under "arena" (a fit
+step: its loss, gradients and parameters before and after). `digest`
+digests either. A mix's `window` returns the last request's outputs as
+`last` and may return `inputs`: what that request consumed beyond the
+layout and the configuration's settings (a fit step: its starting
+parameters and optimizer moments), which the reference is given.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import contextlib
 import dataclasses
 import time
 import zlib
+from collections.abc import Mapping
 from typing import Callable
 
 import numpy as np
@@ -85,12 +94,15 @@ def build_scene(layout):
 class Target:
     """What a request runs on: the cards, the mesh over them (None on one
     card), the export directory and whether the tiles take the extra floor
-    tint."""
+    tint; and `state`, which a mix's requests may keep from one to the
+    next, set-up's warm-up request to the window's first (a fit's
+    parameters and optimizer moments). This module's requests keep none."""
 
     devices: list
     mesh: object
     out_dir: str
     tint_extra: bool
+    state: dict = dataclasses.field(default_factory=dict)
 
 
 def request(layout, rcfg, target: Target, annotate=False) -> tuple:
@@ -130,14 +142,22 @@ def request(layout, rcfg, target: Target, annotate=False) -> tuple:
     return texels, dict(scene=t1 - t0, engine=t2 - t1, export=t3 - t2)
 
 
-def digest(texels: np.ndarray) -> int:
-    return zlib.crc32(np.ascontiguousarray(texels).tobytes())
+def digest(outputs) -> int:
+    """crc32 of an arena's bytes; of a mapping, of each name and its
+    array's bytes in name order."""
+    if not isinstance(outputs, Mapping):
+        return zlib.crc32(np.ascontiguousarray(outputs).tobytes())
+    crc = 0
+    for name in sorted(outputs):
+        crc = zlib.crc32(name.encode(), crc)
+        crc = zlib.crc32(np.ascontiguousarray(outputs[name]).tobytes(), crc)
+    return crc
 
 
 def window(layout, rcfg, target: Target, seconds: float) -> dict:
     """Requests back to back until the first request boundary past
     `seconds`: the window's seconds, requests and failures, each request's
-    spans and arena digest, and the last arena."""
+    spans and arena digest, and the last arena (`last`)."""
     import traceback
 
     spans, digests, failed, last = [], [], 0, None
@@ -177,10 +197,12 @@ def traced(layout, rcfg, target: Target, profiler, n: int, sync) -> list:
 
 @dataclasses.dataclass
 class Mix:
-    """A traffic mix: its parameters and its request loop, `window`
-    (requests for `seconds`) and `traced` (the requests a --trace 1 run
-    profiles after the window), with the signatures of this module's."""
+    """A traffic mix: its parameters, its `request` (the one set-up runs
+    to warm up), and its request loop, `window` (requests for `seconds`)
+    and `traced` (the requests a --trace 1 run profiles after the window),
+    with the signatures of this module's."""
 
     params: dict
     window: Callable = window
     traced: Callable = traced
+    request: Callable = request

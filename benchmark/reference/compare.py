@@ -23,16 +23,27 @@ Each value must not pass its limit.
 - answers_differ: requests (the window's and the traced ones) whose arena
   differs from the last one's, and requests that failed (the program is
   deterministic for a seed).
+
+Those are the checks of a kind without checks of its own (`judge`). A
+kind with its own (reference/<kind>.py `checks`, see registry.py) may
+reuse the functions here. A run whose checks cannot be made stops with a
+CheckError, and prints no result.
 """
 from __future__ import annotations
 
 import pathlib
+from collections.abc import Mapping
 
 import numpy as np
 
 from .layout import Layout, geometry_json, level0_mask, mipmap, tiles
 
 LUMA = np.array([0.2126, 0.7152, 0.0722])
+
+
+class CheckError(ValueError):
+    """A run that cannot be judged: its checks and its configuration's
+    limits disagree, or its reference gives no measure to judge by."""
 
 
 def tone_map(texels: np.ndarray) -> np.ndarray:
@@ -122,6 +133,11 @@ def engine_checks(layout: Layout, texels: np.ndarray, ref: dict):
     want = 0.5 * (a + b)
     energy = abs(got.sum() - want.sum()) / want.sum()
     noise = np.sum((a - b) ** 2) * (0.25 + 0.5 * ref["share"])
+    if not noise > 0:
+        raise CheckError(
+            "the reference's halves A and B are equal, so texel_chi2 has no "
+            "noise to divide by: a deterministic reference needs checks of "
+            "its own (reference/<kind>.py `checks`)")
     return float(energy), float(np.sum((got - want) ** 2) / noise)
 
 
@@ -142,4 +158,56 @@ def checks(layout: Layout, texels: np.ndarray, ref: dict, out_dir,
         energy_gap=energy,
         texel_chi2=chi2,
         answers_differ=answers_differ)
-    return [(k, v, limits[k]) for k, v in values.items()]
+    return agree([(k, v, limits.get(k)) for k, v in values.items()], limits)
+
+
+def agree(checks: list, limits: dict) -> list:
+    """`checks` as they are, where their names and the configuration's
+    `limits` agree one to one and each check's limit is the
+    configuration's; else a CheckError naming what disagrees."""
+    names = [n for n, _, _ in checks]
+    faults = []
+    if len(set(names)) < len(names):
+        faults.append(f"checks given twice: "
+                      f"{sorted({n for n in names if names.count(n) > 1})}")
+    if set(names) - set(limits):
+        faults.append(f"checks without a limit in the configuration: "
+                      f"{sorted(set(names) - set(limits))}")
+    if set(limits) - set(names):
+        faults.append(f"limits that no check gives: "
+                      f"{sorted(set(limits) - set(names))}")
+    other = [n for n, _, lim in checks if n in limits and lim != limits[n]]
+    if other:
+        faults.append(f"checks whose limit is not the configuration's: "
+                      f"{other}")
+    if faults:
+        raise CheckError("; ".join(faults))
+    return checks
+
+
+def expected(kind, layout: Layout, settings: dict, budget: dict, seed: int,
+             device, inputs=None) -> dict:
+    """Reference kind `kind`'s (a module, registry.reference) estimate of
+    what the request returned, given the request's `inputs` where its mix
+    returned any."""
+    if inputs is None:
+        return kind.expected(layout, settings, budget, seed, device)
+    return kind.expected(layout, settings, budget, seed, device,
+                         inputs=inputs)
+
+
+def judge(kind, layout: Layout, outputs, ref: dict, out_dir, extra: bool,
+          answers_differ: int, limits: dict, inputs=None) -> list:
+    """[(name, value, limit)] of one cell's run: the kind's own checks
+    where it has them, else `checks` of a bare arena; their names have to
+    agree with `limits` (`agree`)."""
+    own = getattr(kind, "checks", None)
+    if own is not None:
+        return agree(own(layout, outputs, ref, out_dir, extra,
+                         answers_differ, limits, inputs=inputs), limits)
+    if isinstance(outputs, Mapping):
+        raise CheckError(
+            f"the request returned named outputs {sorted(outputs)}, which "
+            "only a kind's own checks (reference/<kind>.py `checks`) judge")
+    return checks(layout, outputs, ref, out_dir, extra, answers_differ,
+                  limits)

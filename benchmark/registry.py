@@ -10,7 +10,21 @@ reference is found by its name in BENCHMARK.json, as a file of its own.
   metric `<m>.<part>` without a file of its own is read by `<m>`'s
 - a reference `<kind>` (a configuration's "reference" "kind"):
   reference/<kind>.py, whose `expected(layout, settings, budget, seed,
-  device, dtype)` estimates what the program should return
+  device, dtype)` estimates what the program should return. Where the
+  cell's mix returns `inputs` (what its last request consumed beyond the
+  layout and the settings, such as a fit step's starting parameters),
+  the harness passes them as `expected(..., inputs=inputs)`; a kind whose
+  mix returns none is called without. A kind may define its own
+  `checks(layout, outputs, ref, out_dir, extra, answers_differ, limits,
+  inputs=None)`, returning [(name, value, limit)] with each limit the
+  configuration's: it judges what the request returned (`outputs`, an
+  arena or a mapping of named arrays, loop.py) against `ref`, what
+  `expected` returned. Without one reference/compare.checks judges a
+  bare arena. Either way the checks' names and the configuration's
+  `limits` have to agree one to one. For tools/readings.py a kind with
+  its own checks may define `control(layout, settings, budget, seed,
+  device, inputs=None)`: outputs of the reference in the program's place,
+  one precision below the configuration's
 
 Adding any of them takes new files only.
 """
@@ -51,7 +65,8 @@ def config(name: str, here=HERE) -> dict:
 def traffic(name: str, here=HERE):
     """The loop.Mix of traffic mix `name`. A module traffic/<name>.py gives
     its `PARAMS` (a dict, the parameters loop.py reads) and may give its own
-    `window` and `traced`, with loop.py's signatures; the rest are loop.py's.
+    `window`, `traced` and `request` (the warm-up), with loop.py's
+    signatures; the rest are loop.py's (whose loops call loop.request).
     Without one, traffic/<name>.json holds the parameters of loop.py's
     closed loop."""
     from . import loop
@@ -61,7 +76,8 @@ def traffic(name: str, here=HERE):
         mod = _module(path, "benchmark_traffic_" + name)
         return loop.Mix(dict(getattr(mod, "PARAMS", {})),
                         getattr(mod, "window", loop.window),
-                        getattr(mod, "traced", loop.traced))
+                        getattr(mod, "traced", loop.traced),
+                        getattr(mod, "request", loop.request))
     params = json.loads((here / "traffic" / f"{name}.json").read_text())
     loop.check_mix(params)
     return loop.Mix(params)

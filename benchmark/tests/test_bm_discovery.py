@@ -106,23 +106,25 @@ def test_split_metric_reads_with_its_base_reader(tmp_path):
 
 
 def test_traffic_module_or_parameters(tmp_path):
-    """traffic/<mix>.py gives its PARAMS and its own loop functions, and
-    loop.py's where it has none; traffic/<mix>.json gives the parameters of
-    loop.py's closed loop, which refuses any other kind."""
+    """traffic/<mix>.py gives its PARAMS and its own loop functions and
+    request, and loop.py's where it has none; traffic/<mix>.json gives the
+    parameters of loop.py's closed loop, which refuses any other kind."""
     from benchmark import loop
 
     t = tmp_path / "traffic"
     t.mkdir()
     (t / "own.py").write_text("PARAMS = {'burst': 4}\n"
-                              "def window(*args):\n    return 'own'\n")
+                              "def window(*args):\n    return 'own'\n"
+                              "def request(*args):\n    return 'step'\n")
     (t / "bare.py").write_text("")
     (t / "closed.json").write_text('{"loop": "closed", "clients": 1}')
     (t / "open.json").write_text('{"loop": "open", "clients": 1}')
     own = registry.traffic("own", here=tmp_path)
     assert own.params == {"burst": 4} and own.window() == "own"
-    assert own.traced is loop.traced
+    assert own.traced is loop.traced and own.request() == "step"
     bare = registry.traffic("bare", here=tmp_path)
     assert bare.params == {} and bare.window is loop.window
+    assert bare.request is loop.request
     closed = registry.traffic("closed", here=tmp_path)
     assert closed.params["loop"] == "closed"
     assert closed.window is loop.window and closed.traced is loop.traced
